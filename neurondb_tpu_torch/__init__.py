@@ -1,0 +1,35 @@
+"""neurondb_tpu_torch — the PyTorch/CUDA port of neurondb_tpu.
+
+A second package beside ``neurondb_tpu`` (the JAX reference, which it
+never imports). It keeps the JAX package's module names so each part has
+a findable counterpart, and holds the IVFFlat search path:
+
+- ``ops``: distances, top-k, and ``ops.kernels`` with the hand-written
+  CUDA kernel of the list-grouped IVF scan (``csrc/``), built for
+  ``sm_90a`` at first use;
+- ``ml``: k-means and recall;
+- ``index``: ``FlatIndex`` and ``IVFFlatIndex``, each constructor taking a
+  ``device`` (default from ``config.device``).
+"""
+
+from neurondb_tpu_torch.version import __version__
+from neurondb_tpu_torch.config import (NDBConfig, configure, get_config,
+                                       set_config)
+from neurondb_tpu_torch.index.base import (quantize_queries_int4,
+                                           quantize_queries_int8,
+                                           quantize_queries_int12)
+from neurondb_tpu_torch.index.flat import FlatIndex
+from neurondb_tpu_torch.index.ivf import IVFFlatIndex
+
+__all__ = [
+    "__version__",
+    "NDBConfig",
+    "get_config",
+    "set_config",
+    "configure",
+    "quantize_queries_int4",
+    "quantize_queries_int8",
+    "quantize_queries_int12",
+    "FlatIndex",
+    "IVFFlatIndex",
+]

@@ -1,0 +1,274 @@
+// List-grouped IVF probe scan, exact top-kp selection, for Hopper (sm_90a).
+//
+// Replaces the TPU kernel neurondb_tpu/ops/pallas/ivf_scan_grouped.py
+// `_grouped_scan_kernel` in its exact selection mode (pos_bits = 0).
+//
+// What it computes. A tile t holds up to qt queries that all probe one
+// posting list: rows [tile_off[t], tile_off[t] + tile_cnt[t]) of the
+// cluster-ordered store. For every query slot of every tile it writes the
+// kp smallest (distance, CSR row) pairs over that list, ascending, where
+//   sq-L2: d = max((|q|^2 + |x^|^2) - 2 (q^ . x^), 0)
+//   ip:    d = -(q^ . x^)
+// q^ is the f32 query rounded to the store type, x^ the stored row, every
+// product and sum is f32, |q|^2 comes from the f32 query and |x^|^2 from
+// the stored row. Ties go to the smaller row: the order is lexicographic
+// on (d, row), which is what the TPU kernel's argmin extraction yields.
+// Unused slots and tiles with tile_cnt == 0 hold (FLT_MAX, -1).
+//
+// What bounds it on the card. At the 1M x 128 headline (16,384 queries,
+// nprobe 8, nlists 1024, ~1k rows per list, 64 queries per tile) a batch
+// reads ~0.8 GB of bf16 rows (~0.25 ms at 3.35 TB/s) and does ~50 GFLOP
+// of f32 FMA (~0.75 ms at 67 TFLOP/s): the f32 FMA pipe and the shared
+// memory reads that feed it bound the kernel, not device memory. The top-k
+// upkeep is small for small kp, because a candidate is tested against the
+// current k-th distance before it touches the list.
+//
+// Design (simple first; wgmma, TMA and tuning are later work):
+// - one block (8 warps) per sub-tile of qs queries; the wrapper splits a
+//   tile of qt queries into qt/qs sub-tiles so that the per-query top-kp
+//   lists fit in shared memory (qs = 8 at kp = 1024);
+// - the sub-tile's queries, rounded to the store type, sit in shared
+//   memory; list rows are staged through shared memory as f32 in chunks of
+//   64 rows x 128 dims (row stride 129 floats, so the lanes' column reads
+//   hit distinct banks). Rows past the list's count are not read, which
+//   takes the place of the TPU kernel's clamped DMA window;
+// - warp w owns queries w, w+8, ...; lane l scores rows l and l+32 of the
+//   chunk against all of its warp's queries, from registers;
+// - each query keeps its running top-kp sorted in shared memory. Lanes
+//   whose candidate beats the current k-th entry are found with one
+//   ballot; each is inserted by the warp: a counting pass finds its place
+//   and the tail shifts up by one;
+// - the TPU kernel's double-buffered DMA and its cross-tile prefetch baton
+//   exist because the TPU grid runs in order. CUDA blocks run in no order,
+//   and several resident blocks per SM hide the load latency instead.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <cfloat>
+#include <cstdint>
+
+namespace {
+
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kRows = 64;               // rows per staged chunk (2 per lane)
+constexpr int kSlab = 128;              // dims per staged slab
+constexpr int kStride = kSlab + 1;      // padded smem row stride (floats)
+constexpr int kQW = 8;                  // queries per warp at most (qs <= 64)
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ float load_f32(const float* p) { return *p; }
+__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ float round_to(float v, const float*) { return v; }
+__device__ __forceinline__ float round_to(float v, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// (da, ra) sorts before (db, rb)
+__device__ __forceinline__ bool before(float da, int ra, float db, int rb) {
+  return da < db || (da == db && ra < rb);
+}
+
+// Offer each lane's candidate (d, row) to one query's sorted top-kp list
+// (ld, lr in shared memory, owned by this warp). (wd, wr) caches the
+// list's last entry and is updated. All 32 lanes call this together.
+__device__ __forceinline__ void offer(float* ld, int* lr, int kp, float d,
+                                      int row, bool valid, int lane,
+                                      float& wd, int& wr) {
+  unsigned m = __ballot_sync(kFull, valid && before(d, row, wd, wr));
+  while (m) {
+    const int src = __ffs(m) - 1;
+    m &= m - 1;
+    const float cd = __shfl_sync(kFull, d, src);
+    const int cr = __shfl_sync(kFull, row, src);
+    if (!before(cd, cr, wd, wr)) continue;          // warp-uniform
+    int n_before = 0;
+    for (int i = lane; i < kp; i += 32) n_before += before(ld[i], lr[i], cd, cr);
+    const int pos = __reduce_add_sync(kFull, n_before);   // < kp
+    // shift [pos, kp-2] up by one, highest 32-entry block first, so each
+    // write lands on an entry that has already been moved
+    for (int b = (kp - 2) >> 5; b >= (pos >> 5); --b) {
+      const int i = (b << 5) + lane;
+      const bool mv = i >= pos && i <= kp - 2;
+      float vd = 0.f;
+      int vr = 0;
+      if (mv) { vd = ld[i]; vr = lr[i]; }
+      __syncwarp();
+      if (mv) { ld[i + 1] = vd; lr[i + 1] = vr; }
+      __syncwarp();
+    }
+    if (lane == 0) { ld[pos] = cd; lr[pos] = cr; }
+    __syncwarp();
+    wd = ld[kp - 1];
+    wr = lr[kp - 1];
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+grouped_scan_kernel(const float* __restrict__ qpad, const T* __restrict__ vecs,
+                    const int* __restrict__ tile_off,
+                    const int* __restrict__ tile_cnt,
+                    float* __restrict__ out_d, int* __restrict__ out_i,
+                    int sub_per_tile, int qs, int D, long long n_rows, int kp,
+                    int metric_ip) {
+  extern __shared__ float smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long sub = blockIdx.x;
+  const int t = static_cast<int>(sub / sub_per_tile);
+  const int off = tile_off[t];
+  // rows past the store are never read
+  int cnt = tile_cnt[t];
+  if (off < 0 || off >= n_rows) cnt = 0;
+  else if (cnt > n_rows - off) cnt = static_cast<int>(n_rows - off);
+
+  const long long qbase = sub * qs;
+  float* o_d = out_d + qbase * kp;
+  int* o_i = out_i + qbase * kp;
+  if (cnt <= 0) {
+    for (int i = tid; i < qs * kp; i += kThreads) { o_d[i] = FLT_MAX; o_i[i] = -1; }
+    return;
+  }
+
+  float* q_s = smem;                                // [qs][D] rounded queries
+  float* qsq_s = q_s + qs * D;                      // [qs] |q|^2 (f32 query)
+  float* x_s = qsq_s + ((qs + 3) & ~3);             // [kRows][kStride]
+  float* top_d = x_s + kRows * kStride;             // [qs][kp]
+  int* top_r = reinterpret_cast<int*>(top_d + qs * kp);   // [qs][kp]
+
+  const float* qg = qpad + qbase * D;
+  for (int i = tid; i < qs * D; i += kThreads) q_s[i] = round_to(qg[i], vecs);
+  for (int i = tid; i < qs * kp; i += kThreads) { top_d[i] = FLT_MAX; top_r[i] = -1; }
+  for (int qi = warp; qi < qs; qi += kWarps) {
+    float s = 0.f;
+    for (int d = lane; d < D; d += 32) { const float v = qg[qi * D + d]; s = fmaf(v, v, s); }
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(kFull, s, o);
+    if (lane == 0) qsq_s[qi] = s;
+  }
+  __syncthreads();
+
+  float wd[kQW];
+  int wr[kQW];
+#pragma unroll
+  for (int j = 0; j < kQW; ++j) { wd[j] = FLT_MAX; wr[j] = -1; }
+
+  for (int c0 = 0; c0 < cnt; c0 += kRows) {
+    const int nrow = min(kRows, cnt - c0);
+    const T* xg = vecs + (static_cast<long long>(off) + c0) * D;
+    float acc[kQW][2];
+#pragma unroll
+    for (int j = 0; j < kQW; ++j) { acc[j][0] = 0.f; acc[j][1] = 0.f; }
+    float xsq0 = 0.f, xsq1 = 0.f;
+
+    for (int d0 = 0; d0 < D; d0 += kSlab) {
+      const int ds = min(kSlab, D - d0);
+      __syncthreads();                              // previous slab consumed
+      for (int r = warp; r < kRows; r += kWarps) {
+        float* dst = x_s + r * kStride;
+        if (r < nrow) {
+          const T* src = xg + static_cast<long long>(r) * D + d0;
+          for (int dd = lane; dd < ds; dd += 32) dst[dd] = load_f32(src + dd);
+        } else {
+          for (int dd = lane; dd < ds; dd += 32) dst[dd] = 0.f;
+        }
+      }
+      __syncthreads();
+      const float* xa = x_s + lane * kStride;
+      const float* xb = x_s + (lane + 32) * kStride;
+      for (int dd = 0; dd < ds; ++dd) {
+        const float x0 = xa[dd], x1 = xb[dd];
+        xsq0 = fmaf(x0, x0, xsq0);
+        xsq1 = fmaf(x1, x1, xsq1);
+#pragma unroll
+        for (int j = 0; j < kQW; ++j) {
+          // queries past qs read a valid slot; their sums are never used
+          const float qv = q_s[min(warp + kWarps * j, qs - 1) * D + d0 + dd];
+          acc[j][0] = fmaf(qv, x0, acc[j][0]);
+          acc[j][1] = fmaf(qv, x1, acc[j][1]);
+        }
+      }
+    }
+
+#pragma unroll
+    for (int j = 0; j < kQW; ++j) {
+      const int qi = warp + kWarps * j;
+      if (qi < qs) {                                // warp-uniform
+        const float qsq = qsq_s[qi];
+        float* ld = top_d + qi * kp;
+        int* lr = top_r + qi * kp;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = lane + 32 * h;
+          const float dot = acc[j][h];
+          const float xsq = h ? xsq1 : xsq0;
+          const float d = metric_ip ? -dot : fmaxf((qsq + xsq) - 2.f * dot, 0.f);
+          offer(ld, lr, kp, d, off + c0 + r, r < nrow, lane, wd[j], wr[j]);
+        }
+      }
+    }
+  }
+
+  __syncwarp();
+  for (int qi = warp; qi < qs; qi += kWarps) {
+    for (int i = lane; i < kp; i += 32) {
+      o_d[qi * kp + i] = top_d[qi * kp + i];
+      o_i[qi * kp + i] = top_r[qi * kp + i];
+    }
+  }
+}
+
+template <typename T>
+int launch(const float* qpad, const void* vecs, const int* tile_off,
+           const int* tile_cnt, float* out_d, int* out_i, int n_sub,
+           int sub_per_tile, int qs, int D, long long n_rows, int kp,
+           int metric_ip, size_t smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      grouped_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  grouped_scan_kernel<T><<<n_sub, kThreads, smem, stream>>>(
+      qpad, static_cast<const T*>(vecs), tile_off, tile_cnt, out_d, out_i,
+      sub_per_tile, qs, D, n_rows, kp, metric_ip);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// Dynamic shared memory one block needs, in bytes.
+long long ivf_grouped_scan_smem_bytes(int qs, int D, int kp) {
+  const long long floats = static_cast<long long>(qs) * D + ((qs + 3) & ~3) +
+                           static_cast<long long>(kRows) * kStride +
+                           static_cast<long long>(qs) * kp;
+  return 4 * floats + 4LL * qs * kp;
+}
+
+// qpad [n_sub * qs, D] f32; vecs [n_rows, D] (store_bf16 ? bf16 : f32);
+// tile_off/tile_cnt [n_sub / sub_per_tile] int32; out_d/out_i
+// [n_sub * qs, kp]. Launches on `stream` and returns the CUDA error code
+// of the launch (0 = success).
+int ivf_grouped_scan(const void* qpad, const void* vecs, const void* tile_off,
+                     const void* tile_cnt, void* out_d, void* out_i, int n_sub,
+                     int sub_per_tile, int qs, int D, long long n_rows, int kp,
+                     int metric_ip, int store_bf16, void* stream) {
+  if (n_sub <= 0) return 0;
+  if (qs < 1 || qs > kWarps * kQW || kp < 1 || D < 1 || sub_per_tile < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = static_cast<size_t>(ivf_grouped_scan_smem_bytes(qs, D, kp));
+  auto q = static_cast<const float*>(qpad);
+  auto to = static_cast<const int*>(tile_off);
+  auto tc = static_cast<const int*>(tile_cnt);
+  auto od = static_cast<float*>(out_d);
+  auto oi = static_cast<int*>(out_i);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (store_bf16)
+    return launch<__nv_bfloat16>(q, vecs, to, tc, od, oi, n_sub, sub_per_tile,
+                                 qs, D, n_rows, kp, metric_ip, smem, s);
+  return launch<float>(q, vecs, to, tc, od, oi, n_sub, sub_per_tile, qs, D,
+                       n_rows, kp, metric_ip, smem, s);
+}
+
+}  // extern "C"

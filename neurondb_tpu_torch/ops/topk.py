@@ -1,0 +1,74 @@
+"""Top-k selection and the chunked exact k-NN scan.
+
+Counterpart of ``neurondb_tpu/ops/topk.py``. Deliberate divergence:
+``recall_target < 1.0`` selected with ``lax.approx_min_k`` on the TPU;
+the card has no such primitive, so it is served exactly here.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from neurondb_tpu_torch.ops import distance as D
+
+NEG_FILL = float(torch.finfo(torch.float32).max)
+
+
+def topk_smallest(scores: torch.Tensor, k: int, *,
+                  recall_target: float = 1.0
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Smallest-k along the last axis -> (values, indices), ascending.
+    ``recall_target`` is accepted for parity and served exactly."""
+    k = min(k, scores.shape[-1])
+    return torch.topk(scores, k, dim=-1, largest=False, sorted=True)
+
+
+def merge_topk(vals_a: torch.Tensor, idx_a: torch.Tensor,
+               vals_b: torch.Tensor, idx_b: torch.Tensor,
+               k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Merge two (values, ids) top-k sets -> ascending top-k. On equal
+    distance the candidate from ``a`` wins (stable sort over the
+    concatenation), as in the JAX package."""
+    vals = torch.cat([vals_a, vals_b], dim=-1)
+    idx = torch.cat([idx_a, idx_b], dim=-1)
+    v, pos = torch.sort(vals, dim=-1, stable=True)
+    k = min(k, vals.shape[-1])
+    return v[..., :k], torch.gather(idx, -1, pos[..., :k])
+
+
+def chunked_knn(queries: torch.Tensor, base: torch.Tensor, k: int, *,
+                metric: str = "l2", chunk: int = 65536,
+                base_sqnorms: Optional[torch.Tensor] = None,
+                ids: Optional[torch.Tensor] = None,
+                valid: Optional[torch.Tensor] = None,
+                recall_target: float = 1.0,
+                dot_dtype: Optional[torch.dtype] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact k-NN without materializing [B, N]: a loop over N-chunks,
+    GEMM distances per chunk, running top-k merge. Returns (dists [B, k],
+    ids [B, k]) ascending; masked rows score ``NEG_FILL``. ``ids``
+    defaults to the row number (int32); the output ids take its dtype."""
+    metric = D.canonical_metric(metric)
+    B = queries.shape[0]
+    N = base.shape[0]
+    k = min(k, N)
+    dev = queries.device
+    bvals = torch.full((B, k), NEG_FILL, dtype=torch.float32, device=dev)
+    id_dtype = ids.dtype if ids is not None else torch.int32
+    bids = torch.full((B, k), -1, dtype=id_dtype, device=dev)
+    for s in range(0, N, chunk):
+        e = min(s + chunk, N)
+        sq = base_sqnorms[s:e] if base_sqnorms is not None else None
+        d = D.pairwise_distance(queries, base[s:e], metric,
+                                base_sqnorms=sq, dot_dtype=dot_dtype)
+        if valid is not None:
+            d = d.masked_fill(~valid[s:e][None, :], NEG_FILL)
+        cv, cpos = topk_smallest(d, k, recall_target=recall_target)
+        if ids is not None:
+            cids = ids[s:e][cpos]
+        else:
+            cids = (cpos + s).to(id_dtype)
+        bvals, bids = merge_topk(bvals, bids, cv, cids, k)
+    return bvals, bids

@@ -1,0 +1,63 @@
+"""The torch port's config mirrors the JAX package's knobs."""
+
+import dataclasses
+
+import pytest
+import torch
+
+from neurondb_tpu import config as JC
+from neurondb_tpu_torch import config as TC
+
+
+@pytest.fixture()
+def fresh_config(monkeypatch):
+    """A process config rebuilt from the environment, restored after."""
+    monkeypatch.setattr(TC, "_config", None)
+    yield
+    TC.set_config(None)
+
+
+def test_same_fields_plus_device():
+    jf = {f.name for f in dataclasses.fields(JC.NDBConfig)}
+    tf = {f.name for f in dataclasses.fields(TC.NDBConfig)}
+    assert tf == jf | {"device"}
+    # exact selection is the port's default; the rest mirror the JAX values
+    differ = {n for n in jf
+              if getattr(TC.NDBConfig(), n) != getattr(JC.NDBConfig(), n)}
+    assert differ == {"ivf_select"}
+    assert TC.NDBConfig().ivf_select == "exact"
+
+
+def test_show_set_reset_configure(fresh_config):
+    cfg = TC.get_config()
+    cfg.set("neurondb.ivf_nprobe", "25")            # string coerced to int
+    assert cfg.show("ivf_nprobe") == 25
+    cfg.reset("ivf_nprobe")
+    assert cfg.ivf_nprobe == 10
+    assert TC.configure(ivf_nlists=64, device="cpu") is cfg
+    assert cfg.show("neurondb_tpu_torch.ivf_nlists") == 64
+    with pytest.raises(AttributeError):
+        cfg.show("no_such_knob")
+
+
+def test_env_override_uses_torch_prefix(fresh_config, monkeypatch):
+    monkeypatch.setenv("NEURONDB_TORCH_IVF_NPROBE", "7")
+    monkeypatch.setenv("NEURONDB_TORCH_METRICS_ENABLE", "off")
+    monkeypatch.setenv("NEURONDB_TPU_IVF_NLISTS", "999")     # the JAX prefix
+    cfg = TC.get_config()
+    assert cfg.ivf_nprobe == 7 and cfg.metrics_enable is False
+    assert cfg.ivf_nlists == 100
+
+
+def test_device_and_store_dtype_resolution(fresh_config):
+    TC.configure(device="cpu")
+    assert TC.resolve_device() == torch.device("cpu")
+    assert TC.resolve_device("meta") == torch.device("meta")
+    want = "cuda" if torch.cuda.is_available() else "cpu"
+    assert TC.resolve_device("auto").type == want
+    assert TC.resolve_store_dtype(torch.device("cpu")) == torch.float32
+    assert TC.resolve_store_dtype(torch.device("cuda")) == torch.bfloat16
+    assert TC.resolve_store_dtype(torch.device("cpu"), "bfloat16") == \
+        torch.bfloat16
+    with pytest.raises(ValueError, match="store_dtype"):
+        TC.resolve_store_dtype(torch.device("cpu"), "int8")

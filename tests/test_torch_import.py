@@ -1,0 +1,105 @@
+"""The torch port stands alone: no JAX, no neurondb_tpu, no fallback."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from neurondb_tpu_torch.ops.kernels import _build
+from neurondb_tpu_torch.ops.kernels import ivf_scan_grouped as G
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "neurondb_tpu_torch"
+
+
+def _forbidden(name: str) -> bool:
+    return (name == "jax" or name.startswith("jax.") or name == "neurondb_tpu"
+            or name.startswith("neurondb_tpu."))
+
+
+def test_import_leaves_jax_out():
+    """Importing the package and every module in it loads neither jax nor
+    the JAX package (checked in a fresh interpreter)."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import neurondb_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'neurondb_tpu' or "
+        "m.startswith('neurondb_tpu.'))\n"
+        "print(bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_no_jax_import_in_source():
+    files = sorted(PKG.rglob("*.py"))
+    assert len(files) >= 10
+    for f in files:
+        tree = ast.parse(f.read_text(), filename=str(f))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            assert not any(_forbidden(n) for n in names), (f, names)
+
+
+@pytest.fixture()
+def no_nvcc(tmp_path, monkeypatch):
+    """A machine without the CUDA toolkit and without a built library."""
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "DEFAULT_CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_libs", {})
+
+
+def test_loader_raises_without_nvcc(no_nvcc):
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.load_library("ivf_scan_grouped")
+
+
+def test_kernel_wrapper_raises_instead_of_falling_back(no_nvcc):
+    """The CUDA branch of the dispatch builds its kernel or raises; it
+    never runs the plain version."""
+    before = G.LAUNCHES
+    qpad = torch.zeros((16, 8), dtype=torch.float32)
+    vecs = torch.zeros((64, 8), dtype=torch.float32)
+    toff = torch.zeros(1, dtype=torch.int32)
+    tcnt = torch.ones(1, dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        G._grouped_scan_cuda(qpad, vecs, toff, tcnt, kp=8, qt=16,
+                             metric="sqeuclidean")
+    assert G.LAUNCHES == before
+
+
+def test_cpu_tensors_never_launch():
+    rng = np.random.default_rng(0)
+    vecs = torch.as_tensor(rng.standard_normal((2048, 16)).astype(np.float32))
+    offsets = torch.tensor([0, 512, 1024], dtype=torch.int32)
+    counts = torch.tensor([500, 300, 1000], dtype=torch.int32)
+    q = torch.as_tensor(rng.standard_normal((20, 16)).astype(np.float32))
+    probes = torch.tensor([[0, 2, 3]] * 20, dtype=torch.int32)
+    before = G.LAUNCHES
+    d, rows = G.ivf_grouped_search(q, probes, vecs, offsets, counts, k=5)
+    assert G.LAUNCHES == before == 0
+    assert d.device.type == "cpu" and rows.shape == (20, 5)
+
+
+def test_grouped_scan_rejects_mixed_devices():
+    meta = torch.empty(1, device="meta")
+    cpu = torch.zeros(1)
+    with pytest.raises(ValueError, match="several devices"):
+        G.grouped_probe_scan(cpu, meta, cpu, cpu, kp=8)
