@@ -5,29 +5,47 @@
     python3 chip_smoke.py --kernels-only   # device, build, kernel checks
 
 Drives ``neurondb_tpu_torch`` (never JAX, never ``neurondb_tpu``) through
-its IVFFlat main path at the headline size, in phases that each print
-their own lines:
+its IVFFlat and IVF-PQ main paths at the headline sizes, in phases that
+each print their own lines:
 
 1. device: requires CUDA; prints the card's name and power limit;
-2. build: compiles the CUDA kernels from ``neurondb_tpu_torch/csrc``;
-3. kernel against plain: ``grouped_probe_scan``'s CUDA kernel against its
-   plain torch version on the same card tensors, on a ragged bf16 CSR
-   layout (list lengths 0, 3, 31, 1024, 1025, 2500, ...), for qt in
-   {16, 32, 64}, k in {10, 100, 1024}, sqeuclidean and ip, and an
-   all-sentinel tile set; then both timed at the headline shapes
-   (16,384 queries, nprobe 8, nlists 1024, 1M rows);
-4. main path: the 1M x 128 clustered corpus of ``bench.py``; exact
-   neighbours from ``FlatIndex`` on the card, held against float64 on the
-   host and set beside the committed ground truth
+2. build: compiles the CUDA kernels from ``neurondb_tpu_torch/csrc``, one
+   nvcc per source, all started together (ptxas registers and spills);
+3. flat kernel against plain: ``grouped_probe_scan``'s CUDA kernel
+   against its plain torch version on the same card tensors, on a ragged
+   bf16 CSR layout (list lengths 0, 3, 31, 1024, 1025, 2500, ...), for qt
+   in {16, 32, 64}, k in {10, 100, 1024}, sqeuclidean and ip, in the
+   exact, packed and blockmin selection modes, and an all-sentinel tile
+   set; then each mode timed at the headline shapes (16,384 queries,
+   nprobe 8, nlists 1024, 1M rows) beside its bound;
+4. PQ kernel against plain: ``grouped_pq_scan``'s CUDA kernel against its
+   plain torch version, list lengths 0, 3, 127, 128, 1024, 1025, 2500,
+   ..., n_sub in {16, 32}, k in {10, 80, 256}, exact and packed, ip and
+   sq-L2 tables, and an all-sentinel tile set; then both modes timed at
+   the IVF-PQ headline shapes (8,192 queries, nprobe 8, n_sub 32, 1M rows)
+   beside the bound;
+5. IVFFlat main path: the 1M x 128 clustered corpus of ``bench.py``;
+   exact neighbours from ``FlatIndex`` on the card, held against float64
+   on the host and set beside the committed ground truth
    (``bench_cache/gt_clustered_1000000_1000.npz``); an
-   ``IVFFlatIndex(nlists=1024)`` built on the card; recall@10 against
-   the committed ground truth (and the exact neighbours) over nprobe in
-   (1, 2, 4, 8, 12, 16) at batch 16,384 (f32, and the int8 wire), QPS at
-   the smallest nprobe whose recall@10 reaches 0.95, one probe-everything
-   search (the exact route), and the kernel's launch count;
-5. profile: one search at that nprobe under ``torch.profiler`` (device
-   time by kernel, device busy share);
-6. save/load: a round trip that must return identical ids.
+   ``IVFFlatIndex(nlists=1024)`` built on the card; recall@10 over nprobe
+   in (1, 2, 4, 8, 12, 16) at batch 16,384 with the default (packed)
+   selection, QPS at the smallest nprobe whose recall@10 reaches 0.95,
+   the int8 wire, one probe-everything search (the exact route); then
+   recall@10, QPS (the three modes timed in turns) and kernel launches
+   for each selection mode (exact, packed, blockmin) at that nprobe;
+6. profile: one IVFFlat search at that nprobe under ``torch.profiler``;
+7. save/load: an IVFFlat round trip that must return identical ids;
+8. IVF-PQ main path, the protocol of ``scripts/bench_ivfpq.py``: 1,024
+   queries near corpus rows, exact ground truth from ``FlatIndex``;
+   ``IVFPQIndex(nlists=1024, n_sub=32, opq=True, keep_originals=True)``
+   with bf16 originals; (nprobe, rerank) in (8, 8), (8, 16), (16, 16),
+   (16, 24) at batch 8,192 over the 2-byte query wire: recall@10 and the
+   pipelined QPS (median of 3 reps of 4 batches); exact selection at the
+   first point that reaches recall@10 0.95 (it must exist); one search
+   profiled (device time by kernel, busy share); a save/load round trip;
+   one search with a delete outstanding (the segment route); then the
+   n_sub = 16 index (no OPQ) at nprobe 4, rerank 0 and 8.
 
 Any failed check ends the run with a non-zero exit. The line before the
 last is the kernels' JSON record; the last line is
@@ -38,6 +56,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -46,11 +65,24 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-RTOL = ATOL = 1e-4      # kernel vs plain: f32 sums taken in another order
+RTOL = ATOL = 1e-4      # flat kernel vs plain: f32 sums in another order
+SEL_RTOL = 1e-3         # packed modes: the tolerance of the JAX kernel tests
+PQ_TOL = 1e-6           # PQ kernel vs plain: the same f32 sums, same order
 N_ROWS, DIM, NLISTS, K = 1_000_000, 128, 1024, 10
 BATCH, NQ = 16384, 1000
 NPROBES = (1, 2, 4, 8, 12, 16)
 RECALL_BAR = 0.95
+PQ_BATCH, PQ_NQ = 8192, 1024
+PQ_SWEEP = ((8, 8), (8, 16), (16, 16), (16, 24))
+KERNELS = ("ivf_scan_grouped", "ivfpq_scan")
+# NVIDIA H100 SXM data sheet: HBM3 bytes/s and f32 (non-tensor) FLOP/s
+HBM_BPS, F32_FLOPS = 3.35e12, 67e12
+SOURCES = {
+    "ivf_grouped_scan": ("neurondb_tpu_torch/csrc/ivf_scan_grouped.cu",
+                         "neurondb_tpu/ops/pallas/ivf_scan_grouped.py:101"),
+    "ivfpq_grouped_scan": ("neurondb_tpu_torch/csrc/ivfpq_scan.cu",
+                           "neurondb_tpu/ops/pallas/ivfpq_scan.py:60"),
+}
 
 
 def log(msg: str) -> None:
@@ -81,20 +113,31 @@ def phase_device():
 def phase_build():
     from neurondb_tpu_torch.ops.kernels import _build
     t0 = time.perf_counter()
-    _build.load_library("ivf_scan_grouped")
+    _build.build(KERNELS)
+    for name in KERNELS:
+        _build.load_library(name)
     secs = time.perf_counter() - t0
-    for line in _build.BUILD_LOG.get("ivf_scan_grouped", "").splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            log(f"[build] nvcc: {line.strip()}")
-    log(f"[build] ivf_scan_grouped built and loaded in {secs:.2f} s")
+    for name in KERNELS:
+        for line in _build.BUILD_LOG.get(name, "").splitlines():
+            kernel = re.search(r"((?:grouped|pq)_scan_kernel)I(.*?)EEv", line)
+            if kernel and "Function properties" in line:
+                # the kernel's template arguments: store type, mode
+                line = f"{kernel.group(1)}<{kernel.group(2)}> (mangled)"
+            elif kernel or not ("registers" in line or "spill" in line
+                                or "error" in line):
+                continue
+            log(f"[build] {name}: {line.strip()}")
+    log(f"[build] {', '.join(KERNELS)} built together and loaded in "
+        f"{secs:.2f} s")
 
 
-def _layout(rng, lens, dim, dtype, device):
-    """Aligned CSR (32-row list starts, 1024-row tail) with random rows."""
+def _layout(rng, lens, dim, dtype, device, align=32):
+    """Aligned CSR (``align``-row list starts, 1024-row tail) with random
+    rows."""
     import torch
     from neurondb_tpu_torch.index.ivf import PAD_SEG
     lens = np.asarray(lens, np.int64)
-    aligned = (lens + 31) // 32 * 32
+    aligned = (lens + align - 1) // align * align
     offsets = np.zeros(len(lens), np.int64)
     np.cumsum(aligned[:-1], out=offsets[1:])
     npad = max(1, -(-int(aligned.sum()) // PAD_SEG) * PAD_SEG) + PAD_SEG
@@ -120,10 +163,10 @@ def _tiles(q, probes, offsets, counts, qt):
     tile_off, tile_cnt, pos = G.group_probes(probes, offsets, counts, qt=qt,
                                              t_max=t_max)
     qpad = G._scatter_tuples(q, pos, npad=npad, qt=qt, t_max=t_max)
-    return qpad, tile_off, tile_cnt
+    return qpad, tile_off, tile_cnt, pos
 
 
-def _compare(kd, ki, pd, pi, label):
+def _compare(kd, ki, pd, pi, label, rtol=RTOL, atol=ATOL):
     """Distances allclose; rows equal wherever the plain distance is more
     than the tolerance away from both neighbours (pd/pi carry one extra
     column, so the last kept entry has a right neighbour too)."""
@@ -133,10 +176,10 @@ def _compare(kd, ki, pd, pi, label):
     if not torch.equal(kd < 1e30, live):
         fail(f"{label}: kernel and plain disagree on which slots are filled")
     kd_l, pd_l = kd[live], pd[..., :kp][live]
-    if not torch.allclose(kd_l, pd_l, rtol=RTOL, atol=ATOL):
+    if not torch.allclose(kd_l, pd_l, rtol=rtol, atol=atol):
         bad = (kd_l - pd_l).abs().max().item()
         fail(f"{label}: distances differ by up to {bad}")
-    tol = ATOL + RTOL * pd.abs()
+    tol = atol + rtol * pd.abs()
     gap = pd[..., 1:] - pd[..., :-1]                 # [..., kp]
     left = torch.ones_like(live)
     left[..., 1:] = gap[..., :kp - 1] > tol[..., 1:kp]
@@ -148,6 +191,48 @@ def _compare(kd, ki, pd, pi, label):
     if not torch.equal(ki[~live], torch.full_like(ki[~live], -1)):
         fail(f"{label}: empty slots must hold row -1")
     return float((kd_l - pd_l).abs().max()) if kd_l.numel() else 0.0
+
+
+def _row_dists(qpad, vecs, rows, metric, qt):
+    """The plain version's distance of every live output row (q rounded to
+    the store type, f32 products), in output order."""
+    import torch
+    T, _, kp = rows.shape
+    qf = qpad.float().reshape(T, qt, 1, -1).expand(-1, -1, kp, -1)
+    live = rows >= 0
+    q = qf[live]
+    x = vecs[rows[live].long()].float()
+    dots = (x * q.to(vecs.dtype).float()).sum(-1)
+    if metric == "ip":
+        return -dots
+    return torch.clamp(((q * q).sum(-1) + (x * x).sum(-1)) - 2.0 * dots,
+                       min=0.0)
+
+
+def _compare_packed(kd, ki, pd, pi, qpad, vecs, metric, qt, pb, label,
+                    positional):
+    """Packed keys: sorted values allclose at rtol 1e-3 + 2 * 2**(pb-24)
+    (tests/test_pallas_kernels.py:159-246); every kernel row decodes to
+    its own distance within the key rounding; with ``positional`` (packed,
+    not blockmin) rows equal away from near-ties."""
+    import torch
+    step = 2.0 ** (pb - 24)
+    err = _compare(kd, ki, pd, pi, label, rtol=SEL_RTOL + 2 * step,
+                   atol=ATOL) if positional else None
+    kp = kd.shape[-1]
+    live = pd[..., :kp] < 1e30
+    if not torch.equal(kd < 1e30, live):
+        fail(f"{label}: kernel and plain disagree on which slots are filled")
+    kd_l, pd_l = kd[live], pd[..., :kp][live]
+    if not torch.allclose(kd_l, pd_l, rtol=SEL_RTOL + 2 * step, atol=ATOL):
+        fail(f"{label}: sorted distances differ by up to "
+             f"{(kd_l - pd_l).abs().max().item()}")
+    own = _row_dists(qpad, vecs, ki, metric, qt)
+    if not torch.allclose(kd_l, own, rtol=RTOL + 2 * step, atol=ATOL):
+        fail(f"{label}: kernel rows do not carry their own distances "
+             f"(off by up to {(kd_l - own).abs().max().item()})")
+    return err if err is not None else \
+        (float((kd_l - pd_l).abs().max()) if kd_l.numel() else 0.0)
 
 
 def _cuda_ms(fn, reps):
@@ -164,6 +249,29 @@ def _cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def _bound(nbytes, flops):
+    """Least time the card could take: the larger of the bytes over HBM's
+    rate and the f32 operations over the f32 peak."""
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _probe_work(probes, counts, nlists):
+    """(real tuples, their rows summed, rows of the distinct probed
+    lists) for probes [B, npad] with sentinel nlists."""
+    p = probes.reshape(-1).long()
+    real = p < nlists
+    lens = counts.long()
+    rows = int(lens[p[real]].sum())
+    uniq = int(lens[p[real].unique()].sum())
+    return int(real.sum()), rows, uniq
+
+
+MODES = {"exact": (False, False), "packed": (True, False),
+         "blockmin": (True, True)}
+
+
 def phase_kernel():
     import torch
     from neurondb_tpu_torch.ops.kernels import ivf_scan_grouped as G
@@ -171,36 +279,47 @@ def phase_kernel():
     rng = np.random.default_rng(0)
     lens = [0, 3, 31, 1024, 1025, 2500, 700, 64, 1, 333]
     vecs, offsets, counts = _layout(rng, lens, DIM, torch.bfloat16, dev)
+    pb_small = max(11, (max(lens) - 1).bit_length())
     nl = len(lens)
-    max_err = 0.0
+    errs = {m: 0.0 for m in MODES}
     n_cases = 0
-    for qt in (16, 32, 64):
-        for k in (10, 100, 1024):
-            for metric in ("sqeuclidean", "ip"):
-                b = 3 * qt
-                q = torch.randn((b, DIM), device=dev) * 0.5
-                probes = _probes(rng, b, 4, 6, nl, dev)
-                qpad, toff, tcnt = _tiles(q, probes, offsets, counts, qt)
-                kp = max(8, min(k, G.SEG))
-                kd, ki = G.grouped_probe_scan(qpad, vecs, toff, tcnt, kp=kp,
-                                              metric=metric, qt=qt)
-                pd, pi = G.grouped_scan_plain(qpad, vecs, toff, tcnt,
-                                              kp=kp + 1, qt=qt, metric=metric)
-                torch.cuda.synchronize()
-                err = _compare(kd, ki, pd, pi, f"qt={qt} k={k} {metric}")
-                max_err = max(max_err, err)
-                n_cases += 1
-    # a tile set that is all sentinels
-    q = torch.randn((32, DIM), device=dev)
-    probes = torch.full((32, 4), nl, dtype=torch.int32, device=dev)
-    qpad, toff, tcnt = _tiles(q, probes, offsets, counts, 16)
-    kd, ki = G.grouped_probe_scan(qpad, vecs, toff, tcnt, kp=10, qt=16)
-    torch.cuda.synchronize()
-    if not (bool((ki == -1).all()) and bool((kd == G.NEG_FILL).all())):
-        fail("all-sentinel tiles must hold (NEG_FILL, -1) only")
-    n_cases += 1
-    log(f"[kernel] {n_cases} cases match the plain version "
-        f"(rtol {RTOL}, atol {ATOL}); max |kernel - plain| = {max_err:.3e}")
+    for mode, (packed, bmin) in MODES.items():
+        pb = pb_small if packed else 0
+        for qt in (16, 32, 64):
+            for k in (10, 100, 1024):
+                for metric in ("sqeuclidean", "ip"):
+                    b = 3 * qt
+                    q = torch.randn((b, DIM), device=dev) * 0.5
+                    probes = _probes(rng, b, 4, 6, nl, dev)
+                    qpad, toff, tcnt, _ = _tiles(q, probes, offsets, counts, qt)
+                    kp = max(8, min(k, G.SEG))
+                    kw = dict(qt=qt, metric=metric, pos_bits=pb, block_min=bmin)
+                    kd, ki = G.grouped_probe_scan(qpad, vecs, toff, tcnt,
+                                                  kp=kp, **kw)
+                    pd, pi = G.grouped_scan_plain(qpad, vecs, toff, tcnt,
+                                                  kp=kp + 1, **kw)
+                    torch.cuda.synchronize()
+                    label = f"{mode} qt={qt} k={k} {metric}"
+                    err = (_compare(kd, ki, pd, pi, label) if not packed else
+                           _compare_packed(kd, ki, pd, pi, qpad, vecs, metric,
+                                           qt, pb, label, positional=not bmin))
+                    errs[mode] = max(errs[mode], err)
+                    n_cases += 1
+        # a tile set that is all sentinels
+        q = torch.randn((32, DIM), device=dev)
+        probes = torch.full((32, 4), nl, dtype=torch.int32, device=dev)
+        qpad, toff, tcnt, _ = _tiles(q, probes, offsets, counts, 16)
+        kd, ki = G.grouped_probe_scan(qpad, vecs, toff, tcnt, kp=10, qt=16,
+                                      pos_bits=pb, block_min=bmin)
+        torch.cuda.synchronize()
+        if not (bool((ki == -1).all()) and bool((kd == G.NEG_FILL).all())):
+            fail(f"{mode}: all-sentinel tiles must hold (NEG_FILL, -1) only")
+        n_cases += 1
+    log(f"[kernel] flat: {n_cases} cases match the plain version (exact: "
+        f"rtol {RTOL}, atol {ATOL}; packed/blockmin at pb {pb_small}: sorted "
+        f"values rtol {SEL_RTOL} + 2*2^(pb-24), rows carry their distances); "
+        f"max |kernel - plain| exact {errs['exact']:.3e}, packed "
+        f"{errs['packed']:.3e}, blockmin {errs['blockmin']:.3e}")
 
     # headline shapes: 1M bf16 rows in 1024 lists, 16,384 queries, nprobe 8
     # padded to 16 (the index's bucket), k = 10
@@ -209,23 +328,182 @@ def phase_kernel():
     q = torch.randn((BATCH, DIM), device=dev)
     probes = _probes(rng, BATCH, 8, 16, NLISTS, dev)
     qt = G.auto_qt(BATCH, 16, NLISTS)
-    qpad, toff, tcnt = _tiles(q, probes, offsets, counts, qt)
+    qpad, toff, tcnt, _ = _tiles(q, probes, offsets, counts, qt)
     kp = max(8, K)
-    kd, ki = G.grouped_probe_scan(qpad, vecs, toff, tcnt, kp=kp, qt=qt)
-    pd, pi = G.grouped_scan_plain(qpad, vecs, toff, tcnt, kp=kp + 1, qt=qt)
-    torch.cuda.synchronize()
-    max_err = max(max_err, _compare(kd, ki, pd, pi, "headline"))
-    ms = _cuda_ms(lambda: G.grouped_probe_scan(qpad, vecs, toff, tcnt, kp=kp,
-                                               qt=qt), 20)
-    plain_ms = _cuda_ms(lambda: G.grouped_scan_plain(qpad, vecs, toff, tcnt,
-                                                     kp=kp, qt=qt), 3)
+    pb = max(11, int(lens.max() - 1).bit_length())
+    tuples, rows, uniq = _probe_work(probes, counts, NLISTS)
+    # bytes: the distinct probed rows (bf16) and the real tuples' queries
+    # read once, their top-kp written once; f32 FMAs of the real tuples
+    nbytes = uniq * DIM * 2 + tuples * DIM * 4 + tuples * kp * 8
+    bound_ms, bound_by = _bound(nbytes, 2.0 * rows * DIM)
     live_tiles = int((tcnt > 0).sum())
-    log(f"[kernel] headline shapes: {toff.shape[0]} tiles ({live_tiles} live) "
-        f"x qt {qt}, kp {kp}, bf16 store {tuple(vecs.shape)}: "
-        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms per scan")
-    del vecs, qpad, pd, pi
+    stats = {}
+    for mode, (packed, bmin) in MODES.items():
+        kw = dict(kp=kp, qt=qt, pos_bits=pb if packed else 0, block_min=bmin)
+        kd, ki = G.grouped_probe_scan(qpad, vecs, toff, tcnt, **kw)
+        pd, pi = G.grouped_scan_plain(qpad, vecs, toff, tcnt,
+                                      **dict(kw, kp=kp + 1))
+        torch.cuda.synchronize()
+        err = (_compare(kd, ki, pd, pi, f"headline {mode}") if not packed else
+               _compare_packed(kd, ki, pd, pi, qpad, vecs, "sqeuclidean", qt,
+                               pb, f"headline {mode}", positional=not bmin))
+        del kd, ki, pd, pi
+        ms = _cuda_ms(lambda: G.grouped_probe_scan(qpad, vecs, toff, tcnt,
+                                                   **kw), 20)
+        plain_ms = _cuda_ms(lambda: G.grouped_scan_plain(qpad, vecs, toff,
+                                                         tcnt, **kw), 3)
+        stats[mode] = {"max_abs_err": max(errs[mode], err), "ms": ms,
+                       "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "library_ms": None}
+        log(f"[kernel] flat {mode:8s} headline: {toff.shape[0]} tiles "
+            f"({live_tiles} live) x qt {qt}, kp {kp}, pb {kw['pos_bits']}: "
+            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{bound_ms:.3f} ms ({bound_by}; {nbytes / 1e9:.3f} GB, "
+            f"{2.0 * rows * DIM / 1e9:.1f} GFLOP f32 over {tuples} tuples)")
+    log("[kernel] flat: no single PyTorch call computes the grouped scan "
+        "with its selection; library_ms is null")
+    del vecs, qpad
     torch.cuda.empty_cache()
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+    return stats
+
+
+def _pq_layout(rng, lens, ns, device):
+    """Codes [ns, Npad] uint8 on 128-column list starts with a 1024
+    column tail, random codes; random centroids and codebooks (D = 128)."""
+    import torch
+    from neurondb_tpu_torch.ops.kernels import ivfpq_scan as PQS
+    lens = np.asarray(lens, np.int64)
+    A = PQS.LIST_ALIGN
+    aligned = (lens + A - 1) // A * A
+    offsets = np.zeros(len(lens), np.int64)
+    np.cumsum(aligned[:-1], out=offsets[1:])
+    npad = max(1, -(-int(aligned.sum()) // PQS.SEG) * PQS.SEG) + PQS.SEG
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(rng.integers(1 << 31)))
+    codes_t = torch.randint(0, 256, (ns, npad), generator=gen, device=device,
+                            dtype=torch.uint8)
+    cents = torch.randn((len(lens), DIM), generator=gen, device=device)
+    cb = torch.randn((ns, 256, DIM // ns), generator=gen, device=device) * 0.5
+    return (codes_t, cents, cb,
+            torch.as_tensor(offsets, dtype=torch.int32, device=device),
+            torch.as_tensor(lens, dtype=torch.int32, device=device))
+
+
+def _pq_tiles(q, probes, cents, cb, offsets, counts, qt, metric, R=None):
+    from neurondb_tpu_torch.ops.kernels import ivfpq_scan as PQS
+    b, npad = probes.shape
+    t_max = PQS.tiles_for(b, npad, counts.shape[0], qt)
+    toff, tcnt, pos = PQS.group_probes(probes, offsets, counts, qt=qt,
+                                       t_max=t_max)
+    lut = PQS.build_luts(q, probes, cents, cb, pos, R, npad=npad, qt=qt,
+                         t_max=t_max, metric=metric)
+    return lut, toff, tcnt
+
+
+def phase_pq_kernel():
+    import torch
+    from neurondb_tpu_torch.ops.kernels import ivfpq_scan as PQS
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1)
+    lens = [0, 3, 127, 128, 1024, 1025, 2500, 1, 300, 700]
+    pb_small = max(11, (max(lens) - 1).bit_length())
+    errs = {"exact": 0.0, "packed": 0.0}
+    identical = True
+    n_cases = 0
+    for ns in (16, 32):
+        codes_t, cents, cb, offsets, counts = _pq_layout(rng, lens, ns, dev)
+        nl = len(lens)
+        for mode in ("exact", "packed"):
+            pb = pb_small if mode == "packed" else 0
+            for i, k in enumerate((10, 80, 256)):
+                for metric in ("sqeuclidean", "ip"):
+                    qt = (16, 64, 32)[i]
+                    b = 3 * qt
+                    q = torch.randn((b, DIM), device=dev)
+                    probes = _probes(rng, b, 5, 8, nl, dev)
+                    lut, toff, tcnt = _pq_tiles(q, probes, cents, cb, offsets,
+                                                counts, qt, metric)
+                    kp = max(8, min(k, PQS.KP_MAX))
+                    kd, ki = PQS.grouped_pq_scan(lut, codes_t, toff, tcnt,
+                                                 kp=kp, qt=qt, pos_bits=pb)
+                    pd, pi = PQS.grouped_pq_scan_plain(
+                        lut, codes_t, toff, tcnt, kp=kp + 1, qt=qt,
+                        pos_bits=pb)
+                    torch.cuda.synchronize()
+                    label = f"pq {mode} n_sub={ns} qt={qt} k={k} {metric}"
+                    err = _compare(kd, ki, pd, pi, label, rtol=PQ_TOL,
+                                   atol=PQ_TOL)
+                    identical &= (torch.equal(kd, pd[..., :kp])
+                                  and torch.equal(ki, pi[..., :kp]))
+                    errs[mode] = max(errs[mode], err)
+                    n_cases += 1
+        # a tile set that is all sentinels
+        q = torch.randn((32, DIM), device=dev)
+        probes = torch.full((32, 4), len(lens), dtype=torch.int32, device=dev)
+        lut, toff, tcnt = _pq_tiles(q, probes, cents, cb, offsets, counts, 16,
+                                    "sqeuclidean")
+        for pb in (0, pb_small):
+            kd, ki = PQS.grouped_pq_scan(lut, codes_t, toff, tcnt, kp=10,
+                                         qt=16, pos_bits=pb)
+            torch.cuda.synchronize()
+            if not (bool((ki == -1).all()) and bool((kd == PQS.NEG_FILL).all())):
+                fail("pq: all-sentinel tiles must hold (NEG_FILL, -1) only")
+            n_cases += 1
+    log(f"[kernel] pq: {n_cases} cases match the plain version (rtol = atol "
+        f"= {PQ_TOL}; bit-identical outputs: {identical}); max |kernel - "
+        f"plain| exact {errs['exact']:.3e}, packed {errs['packed']:.3e}")
+
+    # IVF-PQ headline shapes: 1M rows in 1024 lists, n_sub 32, 8,192
+    # queries, nprobe 8 (the index's pow-2 bucket is 8), k 10 x rerank 8
+    ns = 32
+    lens = rng.multinomial(N_ROWS, np.full(NLISTS, 1.0 / NLISTS))
+    codes_t, cents, cb, offsets, counts = _pq_layout(rng, lens, ns, dev)
+    q = torch.randn((PQ_BATCH, DIM), device=dev)
+    probes = _probes(rng, PQ_BATCH, 8, 8, NLISTS, dev)
+    qt = PQS.auto_qt(PQ_BATCH, 8, NLISTS)
+    lut, toff, tcnt = _pq_tiles(q, probes, cents, cb, offsets, counts, qt,
+                                "sqeuclidean")
+    kp = max(8, min(K * 8, PQS.KP_MAX))
+    pb = max(11, int(lens.max() - 1).bit_length())
+    tuples, rows, uniq = _probe_work(probes, counts, NLISTS)
+    L = ns * 256
+    # bytes: the real tuples' tables and the distinct probed lists' codes
+    # read once, the real tuples' top-kp written once; one f32 add per
+    # table lookup
+    nbytes = tuples * L * 4 + uniq * ns + tuples * kp * 8
+    bound_ms, bound_by = _bound(nbytes, float(rows) * ns)
+    stats = {}
+    for mode in ("exact", "packed"):
+        kw = dict(kp=kp, qt=qt, pos_bits=pb if mode == "packed" else 0)
+        kd, ki = PQS.grouped_pq_scan(lut, codes_t, toff, tcnt, **kw)
+        pd, pi = PQS.grouped_pq_scan_plain(lut, codes_t, toff, tcnt,
+                                           **dict(kw, kp=kp + 1))
+        torch.cuda.synchronize()
+        err = _compare(kd, ki, pd, pi, f"pq headline {mode}", rtol=PQ_TOL,
+                       atol=PQ_TOL)
+        del kd, ki, pd, pi
+        ms = _cuda_ms(lambda: PQS.grouped_pq_scan(lut, codes_t, toff, tcnt,
+                                                  **kw), 10)
+        plain_ms = _cuda_ms(lambda: PQS.grouped_pq_scan_plain(
+            lut, codes_t, toff, tcnt, **kw), 2)
+        stats[mode] = {"max_abs_err": max(errs[mode], err), "ms": ms,
+                       "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "library_ms": None}
+        log(f"[kernel] pq {mode:6s} headline: {toff.shape[0]} tiles "
+            f"({int((tcnt > 0).sum())} live) x qt {qt}, kp {kp}, pb "
+            f"{kw['pos_bits']}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            f"bound {bound_ms:.3f} ms ({bound_by}; {nbytes / 1e9:.3f} GB over "
+            f"{tuples} tuples, {rows * ns / 1e9:.2f} G lookups)")
+    lut_ms = _cuda_ms(lambda: _pq_tiles(q, probes, cents, cb, offsets, counts,
+                                        qt, "sqeuclidean"), 3)
+    log(f"[kernel] pq: grouping + build_luts at the headline shapes "
+        f"{lut_ms:.3f} ms (tables {tuple(lut.shape)} f32, "
+        f"{lut.numel() * 4 / 1e9:.2f} GB)")
+    log("[kernel] pq: no single PyTorch call computes the grouped ADC scan "
+        "with its selection; library_ms is null")
+    del lut, codes_t
+    torch.cuda.empty_cache()
+    return stats
 
 
 def _load_bench_inputs():
@@ -240,11 +518,31 @@ def _load_bench_inputs():
     return x, q.astype(np.float32), gt
 
 
+def _rep(search, batch, n_batches=4):
+    """Pipelined QPS of ``n_batches`` searches with one barrier."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_batches):
+        search()
+    torch.cuda.synchronize()
+    return n_batches * batch / (time.perf_counter() - t0)
+
+
+def _qps(search, batch, reps=3):
+    """Median pipelined QPS of ``reps`` reps of 4 searches, after one
+    warm rep; and all reps."""
+    _rep(search, batch)
+    reps_ = [_rep(search, batch) for _ in range(reps)]
+    return float(np.median(reps_)), reps_
+
+
 def phase_main():
     import torch
     import neurondb_tpu_torch as nt
     from neurondb_tpu_torch.ml.metrics import recall_at_k
     from neurondb_tpu_torch.ops.kernels import ivf_scan_grouped as G
+    from neurondb_tpu_torch.ops.kernels import ivfpq_scan as PQS
 
     t0 = time.perf_counter()
     x, q, gt = _load_bench_inputs()
@@ -269,7 +567,7 @@ def phase_main():
     if r_flat < 0.99:
         fail(f"FlatIndex recall@10 {r_flat} < 0.99 against float64")
 
-    G.LAUNCHES = 0
+    G.LAUNCHES = PQS.LAUNCHES = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     index = nt.IVFFlatIndex(x, nlists=NLISTS, metric="l2", seed=0,
@@ -285,16 +583,19 @@ def phase_main():
     if index._vecs.device.type != "cuda" or index._vecs.dtype != torch.bfloat16:
         fail("the posting store must be bf16 on CUDA")
 
+    sel = nt.get_config().ivf_select
     qb = np.concatenate([q] * (BATCH // NQ + 1))[:BATCH]
     chosen = None
+    n_grouped = 0
     for nprobe in NPROBES:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         _, ids = index.search(qb, k=K, nprobe=nprobe)
         wall = time.perf_counter() - t0
+        n_grouped += 1
         r = recall_at_k(ids[:NQ], gt)
-        log(f"[main] nprobe {nprobe:>2} f32 wire: recall@10 {r:.4f} "
-            f"(vs exact {recall_at_k(ids[:NQ], exact):.4f}), "
+        log(f"[main] nprobe {nprobe:>2} f32 wire, select {sel}: recall@10 "
+            f"{r:.4f} (vs exact {recall_at_k(ids[:NQ], exact):.4f}), "
             f"batch {BATCH} in {wall * 1e3:.1f} ms")
         if r >= RECALL_BAR and chosen is None:
             chosen = nprobe
@@ -302,23 +603,10 @@ def phase_main():
         fail(f"recall@10 below {RECALL_BAR} at every nprobe <= {NPROBES[-1]}")
     wire = nt.quantize_queries_int8(qb)
     _, ids = index.search(wire, k=K, nprobe=chosen)
+    n_grouped += 1
     log(f"[main] nprobe {chosen:>2} int8 wire: recall@10 "
         f"{recall_at_k(ids[:NQ], gt):.4f} "
         f"(vs exact {recall_at_k(ids[:NQ], exact):.4f})")
-
-    def rep():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(4):
-            index.search(qb, k=K, nprobe=chosen)
-        torch.cuda.synchronize()
-        return 4 * BATCH / (time.perf_counter() - t0)
-
-    rep()
-    reps = [rep() for _ in range(3)]
-    qps = float(np.median(reps))
-    log(f"[main] QPS at nprobe {chosen} (f32 queries, batch {BATCH}, "
-        f"4 batches/rep): median {qps:.0f} of {[round(r) for r in reps]}")
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -330,12 +618,41 @@ def phase_main():
         f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
     if r_exact < RECALL_BAR:
         fail(f"exact route recall@10 {r_exact} < {RECALL_BAR}")
+
+    # the modes in turns (one rep each, the order reversed every round):
+    # the search is host-bound, and host time drifts within a run
+    per_mode = {m: 0 for m in MODES}
+    reps = {m: [] for m in MODES}
+    recalls = {}
+    for rnd in range(4):                       # round 0 warms up
+        for mode in (list(MODES) if rnd % 2 == 0 else list(MODES)[::-1]):
+            before = G.LAUNCHES
+            if rnd == 0:
+                _, ids = index.search(qb, k=K, nprobe=chosen, select=mode)
+                recalls[mode] = (recall_at_k(ids[:NQ], gt),
+                                 recall_at_k(ids[:NQ], exact))
+                n_grouped += 1
+            qps = _rep(lambda: index.search(qb, k=K, nprobe=chosen,
+                                            select=mode), BATCH)
+            if rnd:
+                reps[mode].append(qps)
+            n_grouped += 4
+            per_mode[mode] += G.LAUNCHES - before
+    for mode in MODES:
+        log(f"[main] select {mode:8s} nprobe {chosen}: recall@10 "
+            f"{recalls[mode][0]:.4f} (vs exact {recalls[mode][1]:.4f}), QPS "
+            f"median {np.median(reps[mode]):.0f} of "
+            f"{[round(r) for r in reps[mode]]} (f32 queries, batch {BATCH}, "
+            f"4 batches/rep, modes in turns), kernel launches "
+            f"{per_mode[mode]}")
     launches = G.LAUNCHES
-    log(f"[main] grouped-scan kernel launches during the main path: {launches}")
-    if launches < len(NPROBES) + 1 + 4 * 4:
+    log(f"[main] grouped-scan kernel launches during the IVFFlat path: "
+        f"{launches} for {n_grouped} grouped searches; IVF-PQ kernel: "
+        f"{PQS.LAUNCHES}")
+    if launches != n_grouped or min(per_mode.values()) == 0:
         fail(f"the grouped searches did not all go through the kernel "
-             f"({launches} launches)")
-    return index, qb, chosen, launches
+             f"({launches} launches, {n_grouped} grouped searches)")
+    return index, qb, chosen, per_mode, x
 
 
 def phase_save_load(index, qb, nprobe):
@@ -352,30 +669,153 @@ def phase_save_load(index, qb, nprobe):
     log(f"[save_load] round trip in {secs:.2f} s; ids identical")
 
 
-def phase_profile(index, qb, nprobe):
-    """One search under torch.profiler: device time by kernel, and the
-    share of the search's wall time the device was busy."""
+def _profile(tag, search):
+    """One call under torch.profiler: device time by kernel, and the
+    share of the call's wall time the device was busy."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    index.search(qb, k=K, nprobe=nprobe)
+    search()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        index.search(qb, k=K, nprobe=nprobe)
+        search()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA
                and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    log(f"[profile] one search at nprobe {nprobe}, batch {BATCH}: wall "
-        f"{wall_ms:.2f} ms under the profiler, device busy {busy_ms:.2f} ms "
-        f"({100 * busy_ms / wall_ms:.0f}%)")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
-        log(f"[profile] {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<3} "
+    log(f"[{tag}] wall {wall_ms:.2f} ms under the profiler, device busy "
+        f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.0f}%)")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:14]:
+        log(f"[{tag}] {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<3} "
             f"{e.key[:100]}")
+
+
+def phase_ivfpq(x):
+    import torch
+    import neurondb_tpu_torch as nt
+    from neurondb_tpu_torch.ml.metrics import recall_at_k
+    from neurondb_tpu_torch.ops.kernels import ivf_scan_grouped as G
+    from neurondb_tpu_torch.ops.kernels import ivfpq_scan as PQS
+
+    rng = np.random.default_rng(1)         # scripts/bench_ivfpq.py:82-84
+    q = (x[rng.choice(N_ROWS, PQ_NQ, replace=False)]
+         + 0.02 * rng.standard_normal((PQ_NQ, DIM)).astype(np.float32))
+    flat = nt.FlatIndex(x, metric="l2", device="cuda")
+    _, gt = flat.search(q, k=K)
+    del flat
+    torch.cuda.empty_cache()
+    # the 2-byte query wire: a bf16 host tensor, upcast on the card
+    qpad = torch.from_numpy(
+        np.concatenate([q] * (PQ_BATCH // PQ_NQ + 1))[:PQ_BATCH]
+    ).to(torch.bfloat16)
+
+    G.LAUNCHES = PQS.LAUNCHES = 0
+    n_grouped = 0
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx = nt.IVFPQIndex(x, nlists=NLISTS, n_sub=32, seed=0,
+                        keep_originals=True, opq=True, orig_dtype="bf16",
+                        device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    held = torch.cuda.memory_allocated() - mem0
+    st = idx.stats()
+    log(f"[ivfpq] IVFPQIndex(nlists {NLISTS}, n_sub 32, OPQ, bf16 "
+        f"originals) built in {build_s:.2f} s: code bytes {idx.code_bytes} "
+        f"(compression {st['compression']}x), codes_t "
+        f"{tuple(idx._codes_t.shape)}, max list {st['max_list']}; device "
+        f"memory held {held / 1e6:.1f} MB (codes, originals, ids, "
+        f"centroids, codebooks, R)")
+
+    def search(nprobe, rerank, out="numpy"):
+        nonlocal n_grouped
+        n_grouped += 1
+        return idx.search(qpad, k=K, nprobe=nprobe, rerank=rerank, out=out)
+
+    def point(nprobe, rerank, tag):
+        _, ids = search(nprobe, rerank)
+        r = recall_at_k(ids[:PQ_NQ], gt)
+        qps, reps = _qps(lambda: search(nprobe, rerank, out="device"),
+                         PQ_BATCH)
+        log(f"[ivfpq] {tag} nprobe {nprobe:>2} rerank {rerank:>2}: recall@10 "
+            f"{r:.4f}, QPS median {qps:.0f} of {[round(v) for v in reps]} "
+            f"(bf16 wire, batch {PQ_BATCH}, 4 batches/rep)")
+        return r
+
+    chosen = None
+    for nprobe, rerank in PQ_SWEEP:
+        r = point(nprobe, rerank, "n_sub 32 packed")
+        if r >= RECALL_BAR and chosen is None:
+            chosen = (nprobe, rerank)
+    if chosen is None:
+        fail(f"IVF-PQ recall@10 below {RECALL_BAR} at every sweep point")
+    packed_launches = PQS.LAUNCHES
+    nt.configure(ivf_select="exact")
+    try:
+        point(*chosen, "n_sub 32 exact ")
+    finally:
+        nt.get_config().reset("ivf_select")
+    per_mode = {"packed": packed_launches,
+                "exact": PQS.LAUNCHES - packed_launches}
+
+    _profile(f"ivfpq profile nprobe {chosen[0]} rerank {chosen[1]}",
+             lambda: search(*chosen))
+
+    _, before = search(*chosen)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        idx.save(tmp)
+        loaded = nt.IVFPQIndex.load(tmp, device="cuda")
+        secs = time.perf_counter() - t0
+    n_grouped += 1
+    _, after = loaded.search(qpad, k=K, nprobe=chosen[0], rerank=chosen[1])
+    if not np.array_equal(before, after):
+        fail(f"IVF-PQ save/load changed {int((before != after).sum())} ids")
+    log(f"[ivfpq] save/load round trip in {secs:.2f} s; ids identical")
+    del loaded
+
+    victims = np.unique(before[:PQ_NQ, 0])[:100]
+    removed = idx.delete(victims)
+    seg_before = PQS.LAUNCHES
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, ids = idx.search(qpad[:PQ_NQ], k=K, nprobe=chosen[0], rerank=chosen[1])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if PQS.LAUNCHES != seg_before:
+        fail("a search with deletes outstanding must take the segment route")
+    if np.isin(ids, victims).any():
+        fail("the segment route returned a deleted id")
+    log(f"[ivfpq] {removed} deleted, segment route, {PQ_NQ} queries: "
+        f"recall@10 {recall_at_k(ids, gt):.4f} (the deleted ids count as "
+        f"misses) in {wall * 1e3:.1f} ms, no deleted id returned")
+    del idx
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx = nt.IVFPQIndex(x, nlists=NLISTS, n_sub=16, seed=0,
+                        keep_originals=True, orig_dtype="bf16", device="cuda")
+    torch.cuda.synchronize()
+    log(f"[ivfpq] IVFPQIndex(n_sub 16, no OPQ) built in "
+        f"{time.perf_counter() - t0:.2f} s, code bytes {idx.code_bytes}")
+    for rerank in (0, 8):
+        point(4, rerank, "n_sub 16 packed")
+    del idx
+    torch.cuda.empty_cache()
+    launches = PQS.LAUNCHES
+    log(f"[ivfpq] IVF-PQ kernel launches during the IVF-PQ path: {launches} "
+        f"for {n_grouped} grouped searches (packed {per_mode['packed']} in "
+        f"the sweep, exact {per_mode['exact']}); flat kernel: {G.LAUNCHES}")
+    if launches != n_grouped or min(per_mode.values()) == 0:
+        fail(f"the grouped IVF-PQ searches did not all go through the kernel "
+             f"({launches} launches, {n_grouped} grouped searches)")
+    return per_mode
 
 
 def main(argv):
@@ -383,18 +823,28 @@ def main(argv):
     kernels_only = "--kernels-only" in argv
     phase_device()
     phase_build()
-    kstats = phase_kernel()
-    launches = None
+    flat_stats = phase_kernel()
+    pq_stats = phase_pq_kernel()
+    flat_launches = {m: None for m in MODES}
+    pq_launches = {"exact": None, "packed": None}
     if not kernels_only:
-        index, qb, chosen, launches = phase_main()
-        phase_profile(index, qb, chosen)
+        index, qb, chosen, flat_launches, x = phase_main()
+        _profile(f"profile nprobe {chosen} batch {BATCH}",
+                 lambda: index.search(qb, k=K, nprobe=chosen))
         phase_save_load(index, qb, chosen)
-    record = {"kernels": [{
-        "name": "ivf_grouped_scan", "route": "cuda",
-        "source": "neurondb_tpu_torch/csrc/ivf_scan_grouped.cu",
-        "replaces": "neurondb_tpu/ops/pallas/ivf_scan_grouped.py:101",
-        "launches": launches, **kstats}]}
-    log(json.dumps(record))
+        del index
+        torch.cuda.empty_cache()
+        pq_launches = phase_ivfpq(x)
+    kernels = []
+    for name, stats, launches in (
+            ("ivf_grouped_scan", flat_stats, flat_launches),
+            ("ivfpq_grouped_scan", pq_stats, pq_launches)):
+        source, replaces = SOURCES[name]
+        for mode, s in stats.items():
+            kernels.append({"name": name, "mode": mode, "route": "cuda",
+                            "source": source, "replaces": replaces,
+                            "launches": launches[mode], **s})
+    log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

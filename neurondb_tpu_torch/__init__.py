@@ -2,14 +2,15 @@
 
 A second package beside ``neurondb_tpu`` (the JAX reference, which it
 never imports). It keeps the JAX package's module names so each part has
-a findable counterpart, and holds the IVFFlat search path:
+a findable counterpart, and holds the IVFFlat and IVF-PQ search paths:
 
 - ``ops``: distances, top-k, and ``ops.kernels`` with the hand-written
-  CUDA kernel of the list-grouped IVF scan (``csrc/``), built for
-  ``sm_90a`` at first use;
-- ``ml``: k-means and recall;
-- ``index``: ``FlatIndex`` and ``IVFFlatIndex``, each constructor taking a
-  ``device`` (default from ``config.device``).
+  CUDA kernels of the list-grouped IVF scan and the IVF-PQ scan
+  (``csrc/``), built for ``sm_90a`` at first use;
+- ``ml``: k-means (single and batched over subspaces) and recall;
+- ``index``: ``FlatIndex``, ``IVFFlatIndex``, ``PQIndex`` and
+  ``IVFPQIndex``, each constructor taking a ``device`` (default from
+  ``config.device``).
 """
 
 from neurondb_tpu_torch.version import __version__
@@ -20,6 +21,8 @@ from neurondb_tpu_torch.index.base import (quantize_queries_int4,
                                            quantize_queries_int12)
 from neurondb_tpu_torch.index.flat import FlatIndex
 from neurondb_tpu_torch.index.ivf import IVFFlatIndex
+from neurondb_tpu_torch.index.ivfpq import IVFPQIndex
+from neurondb_tpu_torch.index.pq import PQIndex
 
 __all__ = [
     "__version__",
@@ -32,4 +35,6 @@ __all__ = [
     "quantize_queries_int12",
     "FlatIndex",
     "IVFFlatIndex",
+    "PQIndex",
+    "IVFPQIndex",
 ]

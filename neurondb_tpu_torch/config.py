@@ -10,8 +10,11 @@ served as follows in this package:
 
 - ``ivf_coarse_rt`` / ``topk_recall_target`` < 1.0: served by exact
   ``torch.topk`` (there is no approximate PartialReduce on the card);
-- ``ivf_select``: only ``"exact"`` is ported; ``"packed"`` and
-  ``"blockmin"`` raise until ROADMAP queue 2 item 1 ports them;
+- ``ivf_select``: ``"packed"`` (the default, as in the JAX package),
+  ``"blockmin"`` or ``"exact"``, the grouped scan kernel's three
+  selection modes. The IVF-PQ search reads it too (packed keys when it
+  is ``"packed"``, exact for the other two) where the JAX package reads
+  the env var ``NEURONDB_TPU_IVF_SELECT``;
 - ``store_dtype="auto"``: bf16 on CUDA, f32 elsewhere (the JAX package's
   "bf16 on TPU").
 """
@@ -47,7 +50,7 @@ class NDBConfig:
     ivf_sample_cap: int = 10000
     ivf_qt: int = 0                       # grouped-scan queries/tile (0=auto)
     ivf_coarse_rt: float = 0.99           # served exactly (see module doc)
-    ivf_select: str = "exact"             # only "exact" is ported
+    ivf_select: str = "packed"            # packed | blockmin | exact
     bm25_scorer: str = "tiled"
 
     # ---- compute mode ----

@@ -1,19 +1,30 @@
-// List-grouped IVF probe scan, exact top-kp selection, for Hopper (sm_90a).
+// List-grouped IVF probe scan with top-kp selection, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel neurondb_tpu/ops/pallas/ivf_scan_grouped.py
-// `_grouped_scan_kernel` in its exact selection mode (pos_bits = 0).
+// `_grouped_scan_kernel` in its three selection modes: exact
+// (pos_bits = 0), packed (pos_bits = pb) and blockmin (pos_bits = pb,
+// block_min = True).
 //
 // What it computes. A tile t holds up to qt queries that all probe one
 // posting list: rows [tile_off[t], tile_off[t] + tile_cnt[t]) of the
-// cluster-ordered store. For every query slot of every tile it writes the
-// kp smallest (distance, CSR row) pairs over that list, ascending, where
+// cluster-ordered store. For every query slot of every tile it writes kp
+// (distance, CSR row) pairs over that list, ascending, where
 //   sq-L2: d = max((|q|^2 + |x^|^2) - 2 (q^ . x^), 0)
 //   ip:    d = -(q^ . x^)
 // q^ is the f32 query rounded to the store type, x^ the stored row, every
 // product and sum is f32, |q|^2 comes from the f32 query and |x^|^2 from
-// the stored row. Ties go to the smaller row: the order is lexicographic
-// on (d, row), which is what the TPU kernel's argmin extraction yields.
-// Unused slots and tiles with tile_cnt == 0 hold (FLT_MAX, -1).
+// the stored row. Unused slots and tiles with tile_cnt == 0 hold
+// (FLT_MAX, -1).
+// - exact: the kp smallest pairs in the order (d, row), so ties go to the
+//   smaller row, which is what the TPU kernel's argmin extraction yields;
+// - packed: the kp smallest keys pack_key(d, pos, pb) (topk_select.cuh),
+//   pos = the row's position in its list; the output decodes each key to
+//   (its rounded distance, tile_off + pos);
+// - blockmin: as packed, but only one key per (query, 1024-row segment of
+//   list positions, class pos % 128) competes: the minimum of its class.
+//   The TPU kernel folds a segment's keys into these 128 class minima
+//   before its kp rounds; the result is the kp smallest class minima over
+//   all segments, which is what this kernel keeps.
 //
 // What bounds it on the card. At the 1M x 128 headline (16,384 queries,
 // nprobe 8, nlists 1024, ~1k rows per list, 64 queries per tile) a batch
@@ -21,12 +32,13 @@
 // of f32 FMA (~0.75 ms at 67 TFLOP/s): the f32 FMA pipe and the shared
 // memory reads that feed it bound the kernel, not device memory. The top-k
 // upkeep is small for small kp, because a candidate is tested against the
-// current k-th distance before it touches the list.
+// current k-th entry before it touches the list; packed keys halve the
+// list's bytes and make the test one integer compare.
 //
 // Design (simple first; wgmma, TMA and tuning are later work):
 // - one block (8 warps) per sub-tile of qs queries; the wrapper splits a
 //   tile of qt queries into qt/qs sub-tiles so that the per-query top-kp
-//   lists fit in shared memory (qs = 8 at kp = 1024);
+//   lists fit in shared memory (qs = 8 at kp = 1024, exact);
 // - the sub-tile's queries, rounded to the store type, sit in shared
 //   memory; list rows are staged through shared memory as f32 in chunks of
 //   64 rows x 128 dims (row stride 129 floats, so the lanes' column reads
@@ -34,10 +46,17 @@
 //   takes the place of the TPU kernel's clamped DMA window;
 // - warp w owns queries w, w+8, ...; lane l scores rows l and l+32 of the
 //   chunk against all of its warp's queries, from registers;
-// - each query keeps its running top-kp sorted in shared memory. Lanes
-//   whose candidate beats the current k-th entry are found with one
-//   ballot; each is inserted by the warp: a counting pass finds its place
-//   and the tail shifts up by one;
+// - each query keeps its running top-kp sorted in shared memory
+//   (topk_select.cuh `offer`);
+// - blockmin keeps each query's 128 class minima in shared memory: lane l
+//   of the owning warp writes classes (c0 % 128) + l and + 32 of chunk c0,
+//   so no two lanes touch one class. The minima are folded over the 16
+//   chunks of a segment and offered to the top-kp list when the segment
+//   (or the list) ends, then reset: a per-chunk offer would keep more
+//   than one row per class and compute a different, more exact function.
+//   The TPU kernel's clamp of the segment start never moves a segment
+//   that holds live rows (the store ends in a >= 1024-row tail), so the
+//   in-list position is the right frame for segments and classes;
 // - the TPU kernel's double-buffered DMA and its cross-tile prefetch baton
 //   exist because the TPU grid runs in order. CUDA blocks run in no order,
 //   and several resident blocks per SM hide the load latency instead.
@@ -46,8 +65,14 @@
 #include <cuda_bf16.h>
 #include <cfloat>
 #include <cstdint>
+#include <type_traits>
+
+#include "topk_select.cuh"
 
 namespace {
+
+using ndb::kFull;
+using ndb::kIntFill;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
@@ -55,7 +80,10 @@ constexpr int kRows = 64;               // rows per staged chunk (2 per lane)
 constexpr int kSlab = 128;              // dims per staged slab
 constexpr int kStride = kSlab + 1;      // padded smem row stride (floats)
 constexpr int kQW = 8;                  // queries per warp at most (qs <= 64)
-constexpr unsigned kFull = 0xffffffffu;
+constexpr int kSeg = 1024;              // blockmin segment (list positions)
+constexpr int kClasses = 128;           // blockmin classes per segment
+
+enum Mode { kExact = 0, kPacked = 1, kBlockMin = 2 };
 
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
 __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
@@ -66,54 +94,16 @@ __device__ __forceinline__ float round_to(float v, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// (da, ra) sorts before (db, rb)
-__device__ __forceinline__ bool before(float da, int ra, float db, int rb) {
-  return da < db || (da == db && ra < rb);
-}
-
-// Offer each lane's candidate (d, row) to one query's sorted top-kp list
-// (ld, lr in shared memory, owned by this warp). (wd, wr) caches the
-// list's last entry and is updated. All 32 lanes call this together.
-__device__ __forceinline__ void offer(float* ld, int* lr, int kp, float d,
-                                      int row, bool valid, int lane,
-                                      float& wd, int& wr) {
-  unsigned m = __ballot_sync(kFull, valid && before(d, row, wd, wr));
-  while (m) {
-    const int src = __ffs(m) - 1;
-    m &= m - 1;
-    const float cd = __shfl_sync(kFull, d, src);
-    const int cr = __shfl_sync(kFull, row, src);
-    if (!before(cd, cr, wd, wr)) continue;          // warp-uniform
-    int n_before = 0;
-    for (int i = lane; i < kp; i += 32) n_before += before(ld[i], lr[i], cd, cr);
-    const int pos = __reduce_add_sync(kFull, n_before);   // < kp
-    // shift [pos, kp-2] up by one, highest 32-entry block first, so each
-    // write lands on an entry that has already been moved
-    for (int b = (kp - 2) >> 5; b >= (pos >> 5); --b) {
-      const int i = (b << 5) + lane;
-      const bool mv = i >= pos && i <= kp - 2;
-      float vd = 0.f;
-      int vr = 0;
-      if (mv) { vd = ld[i]; vr = lr[i]; }
-      __syncwarp();
-      if (mv) { ld[i + 1] = vd; lr[i + 1] = vr; }
-      __syncwarp();
-    }
-    if (lane == 0) { ld[pos] = cd; lr[pos] = cr; }
-    __syncwarp();
-    wd = ld[kp - 1];
-    wr = lr[kp - 1];
-  }
-}
-
-template <typename T>
+template <typename T, int kMode>
 __global__ void __launch_bounds__(kThreads)
 grouped_scan_kernel(const float* __restrict__ qpad, const T* __restrict__ vecs,
                     const int* __restrict__ tile_off,
                     const int* __restrict__ tile_cnt,
                     float* __restrict__ out_d, int* __restrict__ out_i,
                     int sub_per_tile, int qs, int D, long long n_rows, int kp,
-                    int metric_ip) {
+                    int metric_ip, int pb) {
+  constexpr bool kRowsKept = kMode == kExact;
+  using K = std::conditional_t<kRowsKept, float, int>;
   extern __shared__ float smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const long long sub = blockIdx.x;
@@ -135,12 +125,21 @@ grouped_scan_kernel(const float* __restrict__ qpad, const T* __restrict__ vecs,
   float* q_s = smem;                                // [qs][D] rounded queries
   float* qsq_s = q_s + qs * D;                      // [qs] |q|^2 (f32 query)
   float* x_s = qsq_s + ((qs + 3) & ~3);             // [kRows][kStride]
-  float* top_d = x_s + kRows * kStride;             // [qs][kp]
-  int* top_r = reinterpret_cast<int*>(top_d + qs * kp);   // [qs][kp]
+  K* top_k = reinterpret_cast<K*>(x_s + kRows * kStride);   // [qs][kp]
+  int* top_r = reinterpret_cast<int*>(top_k + qs * kp);     // [qs][kp] exact
+  int* cm_s = top_r;                                // [qs][kClasses] blockmin
 
+  K kEmpty;
+  if constexpr (kRowsKept) kEmpty = FLT_MAX;
+  else kEmpty = kIntFill;
   const float* qg = qpad + qbase * D;
   for (int i = tid; i < qs * D; i += kThreads) q_s[i] = round_to(qg[i], vecs);
-  for (int i = tid; i < qs * kp; i += kThreads) { top_d[i] = FLT_MAX; top_r[i] = -1; }
+  for (int i = tid; i < qs * kp; i += kThreads) {
+    top_k[i] = kEmpty;
+    if constexpr (kRowsKept) top_r[i] = -1;
+  }
+  if constexpr (kMode == kBlockMin)
+    for (int i = tid; i < qs * kClasses; i += kThreads) cm_s[i] = kIntFill;
   for (int qi = warp; qi < qs; qi += kWarps) {
     float s = 0.f;
     for (int d = lane; d < D; d += 32) { const float v = qg[qi * D + d]; s = fmaf(v, v, s); }
@@ -149,10 +148,10 @@ grouped_scan_kernel(const float* __restrict__ qpad, const T* __restrict__ vecs,
   }
   __syncthreads();
 
-  float wd[kQW];
+  K wk[kQW];
   int wr[kQW];
 #pragma unroll
-  for (int j = 0; j < kQW; ++j) { wd[j] = FLT_MAX; wr[j] = -1; }
+  for (int j = 0; j < kQW; ++j) { wk[j] = kEmpty; wr[j] = -1; }
 
   for (int c0 = 0; c0 < cnt; c0 += kRows) {
     const int nrow = min(kRows, cnt - c0);
@@ -191,12 +190,14 @@ grouped_scan_kernel(const float* __restrict__ qpad, const T* __restrict__ vecs,
       }
     }
 
+    // blockmin: this chunk closes a segment, or the list
+    const bool flush = ((c0 + kRows) % kSeg == 0) || (c0 + kRows >= cnt);
 #pragma unroll
     for (int j = 0; j < kQW; ++j) {
       const int qi = warp + kWarps * j;
       if (qi < qs) {                                // warp-uniform
         const float qsq = qsq_s[qi];
-        float* ld = top_d + qi * kp;
+        K* lk = top_k + qi * kp;
         int* lr = top_r + qi * kp;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
@@ -204,7 +205,30 @@ grouped_scan_kernel(const float* __restrict__ qpad, const T* __restrict__ vecs,
           const float dot = acc[j][h];
           const float xsq = h ? xsq1 : xsq0;
           const float d = metric_ip ? -dot : fmaxf((qsq + xsq) - 2.f * dot, 0.f);
-          offer(ld, lr, kp, d, off + c0 + r, r < nrow, lane, wd[j], wr[j]);
+          if constexpr (kMode == kExact) {
+            ndb::offer<true>(lk, lr, kp, d, off + c0 + r, r < nrow, lane,
+                             wk[j], wr[j]);
+          } else {
+            const int key = r < nrow ? ndb::pack_key(d, c0 + r, pb) : kIntFill;
+            if constexpr (kMode == kPacked) {
+              ndb::offer<false>(lk, lr, kp, key, 0, true, lane, wk[j], wr[j]);
+            } else {
+              int* cm = cm_s + qi * kClasses + (c0 & 64) + r;
+              *cm = min(*cm, key);
+            }
+          }
+        }
+        if constexpr (kMode == kBlockMin) {
+          if (flush) {
+            __syncwarp();
+            int* cm = cm_s + qi * kClasses;
+#pragma unroll
+            for (int u = 0; u < kClasses / 32; ++u) {
+              const int key = cm[u * 32 + lane];
+              cm[u * 32 + lane] = kIntFill;
+              ndb::offer<false>(lk, lr, kp, key, 0, true, lane, wk[j], wr[j]);
+            }
+          }
         }
       }
     }
@@ -213,51 +237,84 @@ grouped_scan_kernel(const float* __restrict__ qpad, const T* __restrict__ vecs,
   __syncwarp();
   for (int qi = warp; qi < qs; qi += kWarps) {
     for (int i = lane; i < kp; i += 32) {
-      o_d[qi * kp + i] = top_d[qi * kp + i];
-      o_i[qi * kp + i] = top_r[qi * kp + i];
+      if constexpr (kRowsKept) {
+        o_d[qi * kp + i] = top_k[qi * kp + i];
+        o_i[qi * kp + i] = top_r[qi * kp + i];
+      } else {
+        const int key = top_k[qi * kp + i];
+        const bool empty = key == kIntFill;
+        o_d[qi * kp + i] = empty ? FLT_MAX : ndb::key_dist(key, pb);
+        o_i[qi * kp + i] = empty ? -1 : off + ndb::key_pos(key, pb);
+      }
     }
   }
 }
 
-template <typename T>
+template <typename T, int kMode>
 int launch(const float* qpad, const void* vecs, const int* tile_off,
            const int* tile_cnt, float* out_d, int* out_i, int n_sub,
            int sub_per_tile, int qs, int D, long long n_rows, int kp,
-           int metric_ip, size_t smem, cudaStream_t stream) {
+           int metric_ip, int pb, size_t smem, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      grouped_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      grouped_scan_kernel<T, kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  grouped_scan_kernel<T><<<n_sub, kThreads, smem, stream>>>(
+  grouped_scan_kernel<T, kMode><<<n_sub, kThreads, smem, stream>>>(
       qpad, static_cast<const T*>(vecs), tile_off, tile_cnt, out_d, out_i,
-      sub_per_tile, qs, D, n_rows, kp, metric_ip);
+      sub_per_tile, qs, D, n_rows, kp, metric_ip, pb);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_mode(int mode, const float* qpad, const void* vecs,
+                const int* tile_off, const int* tile_cnt, float* out_d,
+                int* out_i, int n_sub, int sub_per_tile, int qs, int D,
+                long long n_rows, int kp, int metric_ip, int pb, size_t smem,
+                cudaStream_t stream) {
+  if (mode == kExact)
+    return launch<T, kExact>(qpad, vecs, tile_off, tile_cnt, out_d, out_i,
+                             n_sub, sub_per_tile, qs, D, n_rows, kp,
+                             metric_ip, pb, smem, stream);
+  if (mode == kPacked)
+    return launch<T, kPacked>(qpad, vecs, tile_off, tile_cnt, out_d, out_i,
+                              n_sub, sub_per_tile, qs, D, n_rows, kp,
+                              metric_ip, pb, smem, stream);
+  return launch<T, kBlockMin>(qpad, vecs, tile_off, tile_cnt, out_d, out_i,
+                              n_sub, sub_per_tile, qs, D, n_rows, kp,
+                              metric_ip, pb, smem, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory one block needs, in bytes.
-long long ivf_grouped_scan_smem_bytes(int qs, int D, int kp) {
-  const long long floats = static_cast<long long>(qs) * D + ((qs + 3) & ~3) +
-                           static_cast<long long>(kRows) * kStride +
-                           static_cast<long long>(qs) * kp;
-  return 4 * floats + 4LL * qs * kp;
+// Dynamic shared memory one block needs, in bytes. mode: 0 exact,
+// 1 packed, 2 blockmin.
+long long ivf_grouped_scan_smem_bytes(int qs, int D, int kp, int mode) {
+  long long words = static_cast<long long>(qs) * D + ((qs + 3) & ~3) +
+                    static_cast<long long>(kRows) * kStride +
+                    static_cast<long long>(qs) * kp;
+  if (mode == kExact) words += static_cast<long long>(qs) * kp;
+  if (mode == kBlockMin) words += static_cast<long long>(qs) * kClasses;
+  return 4 * words;
 }
 
 // qpad [n_sub * qs, D] f32; vecs [n_rows, D] (store_bf16 ? bf16 : f32);
 // tile_off/tile_cnt [n_sub / sub_per_tile] int32; out_d/out_i
-// [n_sub * qs, kp]. Launches on `stream` and returns the CUDA error code
-// of the launch (0 = success).
+// [n_sub * qs, kp]. mode 1 and 2 take pos_bits pb in [1, 30]. Launches on
+// `stream` and returns the CUDA error code of the launch (0 = success).
 int ivf_grouped_scan(const void* qpad, const void* vecs, const void* tile_off,
                      const void* tile_cnt, void* out_d, void* out_i, int n_sub,
                      int sub_per_tile, int qs, int D, long long n_rows, int kp,
-                     int metric_ip, int store_bf16, void* stream) {
+                     int metric_ip, int store_bf16, int mode, int pb,
+                     void* stream) {
   if (n_sub <= 0) return 0;
-  if (qs < 1 || qs > kWarps * kQW || kp < 1 || D < 1 || sub_per_tile < 1)
+  if (qs < 1 || qs > kWarps * kQW || kp < 1 || D < 1 || sub_per_tile < 1 ||
+      mode < kExact || mode > kBlockMin ||
+      (mode != kExact && (pb < 1 || pb > 30)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(ivf_grouped_scan_smem_bytes(qs, D, kp));
+  const size_t smem =
+      static_cast<size_t>(ivf_grouped_scan_smem_bytes(qs, D, kp, mode));
   auto q = static_cast<const float*>(qpad);
   auto to = static_cast<const int*>(tile_off);
   auto tc = static_cast<const int*>(tile_cnt);
@@ -265,10 +322,11 @@ int ivf_grouped_scan(const void* qpad, const void* vecs, const void* tile_off,
   auto oi = static_cast<int*>(out_i);
   auto s = static_cast<cudaStream_t>(stream);
   if (store_bf16)
-    return launch<__nv_bfloat16>(q, vecs, to, tc, od, oi, n_sub, sub_per_tile,
-                                 qs, D, n_rows, kp, metric_ip, smem, s);
-  return launch<float>(q, vecs, to, tc, od, oi, n_sub, sub_per_tile, qs, D,
-                       n_rows, kp, metric_ip, smem, s);
+    return launch_mode<__nv_bfloat16>(mode, q, vecs, to, tc, od, oi, n_sub,
+                                      sub_per_tile, qs, D, n_rows, kp,
+                                      metric_ip, pb, smem, s);
+  return launch_mode<float>(mode, q, vecs, to, tc, od, oi, n_sub, sub_per_tile,
+                            qs, D, n_rows, kp, metric_ip, pb, smem, s);
 }
 
 }  // extern "C"

@@ -46,14 +46,23 @@ class BaseIndex:
             json.dump(meta, f, indent=2)
 
     @classmethod
+    def from_state(cls, arrays: Dict[str, np.ndarray], meta: Dict[str, Any],
+                   *, device=None) -> "BaseIndex":
+        """Build from a saved state, ``_state()``'s arrays (as numpy) and
+        meta plus ``metric`` and ``dim``, without training: a JAX index's
+        state carries across this way, and both packages then hold the
+        same centroids, codebooks and lists."""
+        obj = cls.__new__(cls)
+        obj._load_state(arrays, meta, device=device)
+        return obj
+
+    @classmethod
     def load(cls, path: str, *, device=None) -> "BaseIndex":
         with open(os.path.join(path, "manifest.json")) as f:
             meta = json.load(f)
         with np.load(os.path.join(path, "arrays.npz")) as data:
             arrays = {k: _from_saved(data[k]) for k in data.files}
-        obj = cls.__new__(cls)
-        obj._load_state(arrays, meta, device=device)
-        return obj
+        return cls.from_state(arrays, meta, device=device)
 
 
 def _to_savable(v) -> np.ndarray:

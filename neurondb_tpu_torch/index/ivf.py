@@ -17,8 +17,10 @@ Deliberate divergences from the JAX package:
 - probe selection (``coarse_rt``) and the exact route's
   ``recall_target`` are served exactly: the card has no approximate
   top-k primitive;
-- ``select`` accepts only ``"exact"``; packed and blockmin selection
-  wait for ROADMAP queue 2 item 1 and raise;
+- ``select`` (default ``config.ivf_select``, ``"packed"``) takes
+  ``"packed"``, ``"blockmin"`` or ``"exact"`` with the JAX package's
+  gate: packed keys of ``pb = max(11, bitlen(max_list - 1))`` bits, exact
+  when ``pb > 14``; an unknown name raises instead of meaning exact;
 - the store is bf16 on CUDA (``store_dtype="auto"``), f32 elsewhere;
 - the TPU limits on the route (the ``8 * t_max`` SMEM guard and the
   ``D % 128`` gate) are dropped; the kernel's own bound is its shared
@@ -41,8 +43,7 @@ from neurondb_tpu_torch.ops import topk as TK
 from neurondb_tpu_torch.ops.kernels import ivf_scan_grouped as G
 
 PAD_SEG = 1024    # store tail padding, as in the JAX package's layout
-SELECT_TODO = ("select={!r} is not ported yet: packed and blockmin "
-               "selection wait for ROADMAP queue 2 item 1; use 'exact'")
+SELECT_MODES = ("packed", "blockmin", "exact")
 
 
 def _ivf_post(vals: torch.Tensor, rows: torch.Tensor, row_ids: torch.Tensor,
@@ -85,9 +86,24 @@ def _ivf_search_exact(q, vecs, sqnorms, row_ids, offsets, counts, *,
                           dot_dtype=dd, recall_target=recall_target)
 
 
+def select_bits(select: str, max_list: int, *, max_bits: int = 14
+                ) -> Tuple[int, bool]:
+    """(pos_bits, block_min) of a selection mode: packed keys need
+    ``2**pb`` >= the longest list, floored at 11 bits; past ``max_bits``
+    the key rounding (2**(pb-24) relative) is no longer negligible and
+    the scan selects exactly (pos_bits 0)."""
+    if select not in SELECT_MODES:
+        raise ValueError(f"unknown select {select!r}; known: {SELECT_MODES}")
+    pb = max(11, (max(max_list, 2) - 1).bit_length())
+    if pb > max_bits or select == "exact":
+        pb = 0
+    return pb, pb > 0 and select == "blockmin"
+
+
 def _ivf_search_grouped(q, centroids, vecs, row_ids, offsets, counts,
                         nprobe: int, *, k: int, metric: str, nprobe_pad: int,
-                        qt: int = 0):
+                        qt: int = 0, pos_bits: int = 0,
+                        block_min: bool = False):
     """Coarse centroid stage -> list-grouped scan -> merge + id map. The
     coarse stage takes the top ``nprobe_pad`` centroids and masks columns
     at or past ``nprobe`` to the sentinel list ``nlists``."""
@@ -107,7 +123,8 @@ def _ivf_search_grouped(q, centroids, vecs, row_ids, offsets, counts,
     qpad = G._scatter_tuples(q, pos, npad=npad, qt=qt, t_max=t_max)
     out_d, out_i = G.grouped_probe_scan(
         qpad, vecs, tile_off, tile_cnt, kp=kp, qt=qt,
-        metric="ip" if metric == "ip" else "sqeuclidean")
+        metric="ip" if metric == "ip" else "sqeuclidean",
+        pos_bits=pos_bits, block_min=block_min)
     vals, rows = G.merge_partials(out_d, out_i, pos.reshape(B, npad), k=k)
     return _ivf_post(vals, rows, row_ids, metric=metric)
 
@@ -159,17 +176,6 @@ class IVFFlatIndex(BaseIndex):
         self.train_inertia = state.inertia
         self._build_lists(x, xdev=xdev)
         self._spill: list = []        # unindexed inserts, exact-scanned
-
-    @classmethod
-    def from_state(cls, arrays: Dict[str, np.ndarray], meta: Dict[str, Any],
-                   *, device=None) -> "IVFFlatIndex":
-        """Build from a saved state (``x``, ``ids``, ``centroids`` and the
-        meta ``nlists``, ``n``, ``seed``, ``spherical``, ``metric``,
-        ``dim``) without re-running k-means: the given centroids make the
-        lists. A JAX index's ``_state()`` carries across this way."""
-        obj = cls.__new__(cls)
-        obj._load_state(arrays, meta, device=device)
-        return obj
 
     # ---- list construction ----
     def _build_lists(self, x: np.ndarray,
@@ -303,12 +309,14 @@ class IVFFlatIndex(BaseIndex):
         """``out="device"`` returns torch tensors on the index's device
         without a host sync; it needs a batch query, no spill buffer and
         int32 external ids. ``recall_target`` and ``coarse_rt`` are
-        accepted for parity and served exactly; ``select`` must be
-        ``"exact"``."""
+        accepted for parity and served exactly. ``select`` is the grouped
+        scan's top-k extraction (``select_bits``): ``"packed"`` rounds
+        distances by <= 2**(pos_bits-24) relative and may swap near-ties
+        at the k boundary; ``"blockmin"`` keeps at most one candidate per
+        (query, 1024-row segment, class pos % 128); ``"exact"``."""
         cfg = get_config()
-        sel = select if select is not None else cfg.ivf_select
-        if sel != "exact":
-            raise ValueError(SELECT_TODO.format(sel))
+        pos_bits, block_min = select_bits(
+            select if select is not None else cfg.ivf_select, self.max_list)
         nprobe = max(1, min(int(nprobe if nprobe is not None
                                 else cfg.ivf_nprobe), self.nlists))
         q, single = as_batch(queries, device=self.device)
@@ -333,7 +341,8 @@ class IVFFlatIndex(BaseIndex):
             vals, ids = _ivf_search_grouped(
                 q, self.centroids, self._vecs, self._ext_ids, self._offsets,
                 self._counts, nprobe, k=kk, metric=self.metric,
-                nprobe_pad=max(npad, nprobe), qt=cfg.ivf_qt)
+                nprobe_pad=max(npad, nprobe), qt=cfg.ivf_qt,
+                pos_bits=pos_bits, block_min=block_min)
         if out == "device":
             if self._spill or self._host_id_map is not None or single:
                 raise ValueError("device output requires a batch query, "

@@ -3,8 +3,8 @@
 Each kernel is one ``csrc/<name>.cu`` file with a plain C interface. At
 first use it is compiled with ``nvcc`` for ``sm_90a`` into a shared
 library under ``neurondb_tpu_torch/_build/`` (listed in ``.gitignore``),
-named by a hash of the source and the flags, so an edited source
-rebuilds. The library is then loaded with ``ctypes``. A missing ``nvcc``
+named by a hash of the source, the shared headers and the flags, so an
+edited source rebuilds. The library is then loaded with ``ctypes``. A missing ``nvcc``
 or a failed compile raises: there is no fallback.
 """
 
@@ -17,7 +17,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -46,28 +46,47 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library's path, named by a hash of its source, the shared
+    headers (``csrc/*.cuh``) and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        src += header.read_bytes()
     h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{h}.so"
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """Build ``csrc/<name>.cu`` if its library is missing, then load it."""
+def build(names: Iterable[str]) -> None:
+    """Compile each named ``csrc/<name>.cu`` whose library is missing:
+    one nvcc per source, all started together, all waited for."""
     with _lock:
-        if name in _libs:
-            return _libs[name]
-        so = library_path(name)
-        if not so.exists():
+        jobs = []
+        for name in names:
+            so = library_path(name)
+            if name in _libs or so.exists():
+                continue
             nvcc = find_nvcc()
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = so.with_suffix(f".{os.getpid()}.tmp")
             cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            BUILD_LOG[name] = res.stdout + res.stderr
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed to build {name}.cu "
-                                   f"(exit {res.returncode}):\n"
-                                   f"{BUILD_LOG[name]}")
-            os.replace(tmp, so)
-        _libs[name] = ctypes.CDLL(str(so))
+            jobs.append((name, so, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for name, so, tmp, proc in jobs:
+            BUILD_LOG[name] = proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed to build {name}.cu (exit "
+                              f"{proc.returncode}):\n{BUILD_LOG[name]}")
+            else:
+                os.replace(tmp, so)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` if its library is missing, then load it."""
+    build([name])
+    with _lock:
+        if name not in _libs:
+            _libs[name] = ctypes.CDLL(str(library_path(name)))
         return _libs[name]

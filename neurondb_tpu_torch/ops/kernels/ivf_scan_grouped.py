@@ -14,9 +14,12 @@ Counterpart of ``neurondb_tpu/ops/pallas/ivf_scan_grouped.py``:
   post    ``merge_partials`` gathers each tuple's partial top-kp by its
           padded slot and merges across probe ranks.
 
-Only the exact selection mode is ported. The TPU kernel's packed and
-blockmin modes wait for ROADMAP queue 2 item 1, to be ported if the card
-measures a gain.
+The three selection modes of the TPU kernel are ported: exact
+(``pos_bits=0``), packed (``pos_bits=pb``: one int32 key per candidate,
+``pack_keys``) and blockmin (``block_min=True``: one key per query,
+1024-row segment and class ``pos % 128``). ``pack_keys`` and
+``unpack_keys`` are the one encode/decode of the packed key; the IVF-PQ
+scan imports them, as the JAX PQ module imports from the flat one.
 
 The kernel dispatch follows the tensor's device, never a failure: a CUDA
 tensor goes to the kernel or raises. ``LAUNCHES`` counts the kernel's
@@ -33,9 +36,11 @@ import torch
 
 from neurondb_tpu_torch.ops.kernels import _build
 
-SEG = 1024        # kp cap (the TPU kernel's segment width)
+SEG = 1024        # kp cap, and the blockmin segment (the TPU kernel's)
 QT = 16           # queries per tile, smallest bucket
 NEG_FILL = float(torch.finfo(torch.float32).max)
+INT_FILL = 0x7FFFFFFF  # packed-key sentinel (int32 max)
+CLASSES = 128     # blockmin classes per segment (the TPU's lane width)
 # opt-in dynamic shared memory per block on sm_90 (227 KB)
 SMEM_MAX = 232448
 # queries one kernel block serves at most (8 warps x 8 queries)
@@ -115,15 +120,69 @@ def _clamped_counts(tile_off: torch.Tensor, tile_cnt: torch.Tensor,
     return torch.where(inside, torch.minimum(tile_cnt.long(), n_rows - off), 0)
 
 
+def pack_keys(d: torch.Tensor, pos: torch.Tensor, valid: torch.Tensor,
+              pos_bits: int) -> torch.Tensor:
+    """Packed selection keys (int32): the monotone bits of the f32
+    distance rounded to a multiple of ``2**pos_bits``, OR the in-list
+    position; ``INT_FILL`` where not ``valid``. The rounding add wraps
+    as XLA's int32 add does (the JAX kernels' arithmetic)."""
+    b = d.float().contiguous().view(torch.int32)
+    mono = (b ^ ((b >> 31) & 0x7FFFFFFF)).long() + (1 << (pos_bits - 1))
+    mono = (mono + (1 << 31)) % (1 << 32) - (1 << 31)        # int32 wrap
+    key = (mono & -(1 << pos_bits)) | pos.long()
+    return torch.where(valid, key, INT_FILL).to(torch.int32)
+
+
+def unpack_keys(keys: torch.Tensor, pos_bits: int, off: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """keys [..., n] int32 -> (rounded distances f32, rows ``off`` + the
+    in-list position int32); ``INT_FILL`` decodes to (NEG_FILL, -1).
+    ``off`` broadcasts against ``keys``."""
+    kb = keys & -(1 << pos_bits)
+    dist = (kb ^ ((kb >> 31) & 0x7FFFFFFF)).contiguous().view(torch.float32)
+    empty = keys == INT_FILL
+    rows = off.to(torch.int32) + (keys & ((1 << pos_bits) - 1))
+    return (torch.where(empty, NEG_FILL, dist),
+            torch.where(empty, -1, rows).to(torch.int32))
+
+
+def class_minima(keys: torch.Tensor) -> torch.Tensor:
+    """[..., L] keys by in-list position -> [..., ceil(L/SEG) * CLASSES]:
+    per SEG-position segment, the minimum key of each class pos % 128
+    (blockmin's tournament)."""
+    L = keys.shape[-1]
+    nseg = -(-L // SEG)
+    pad = torch.full((*keys.shape[:-1], nseg * SEG - L), INT_FILL,
+                     dtype=keys.dtype, device=keys.device)
+    k = torch.cat([keys, pad], dim=-1)
+    k = k.reshape(*keys.shape[:-1], nseg, SEG // CLASSES, CLASSES)
+    return k.amin(dim=-2).reshape(*keys.shape[:-1], nseg * CLASSES)
+
+
+def top_keys(keys: torch.Tensor, kp: int, pos_bits: int, off: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kp smallest keys along the last axis, ascending and decoded;
+    columns past the candidates hold (NEG_FILL, -1)."""
+    kk = min(kp, keys.shape[-1])
+    sel = torch.topk(keys, kk, dim=-1, largest=False, sorted=True).values
+    if kk < kp:
+        pad = torch.full((*keys.shape[:-1], kp - kk), INT_FILL,
+                         dtype=keys.dtype, device=keys.device)
+        sel = torch.cat([sel, pad], dim=-1)
+    return unpack_keys(sel, pos_bits, off)
+
+
 def grouped_scan_plain(qpad: torch.Tensor, vecs: torch.Tensor,
                        tile_off: torch.Tensor, tile_cnt: torch.Tensor, *,
-                       kp: int, qt: int, metric: str = "sqeuclidean"
+                       kp: int, qt: int, metric: str = "sqeuclidean",
+                       pos_bits: int = 0, block_min: bool = False
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's function in plain torch (CPU tensors, tests, and the
     comparison on the card). q is rounded to the store dtype, both sides
     are upcast to f32 before the product, |q|^2 comes from the f32 query
-    and |x|^2 from the stored row. Ties go to the smaller row (stable
-    sort over rows in ascending order)."""
+    and |x|^2 from the stored row. Exact mode: ties go to the smaller row
+    (stable sort over rows in ascending order). ``pos_bits``: the kp
+    smallest packed keys, decoded; ``block_min``: of the class minima."""
     T = tile_off.shape[0]
     D = qpad.shape[1]
     dev = qpad.device
@@ -153,6 +212,13 @@ def grouped_scan_plain(qpad: torch.Tensor, vecs: torch.Tensor,
             xsq = (x * x).sum(-1)                             # [tb, L]
             d = torch.clamp((qsq[s:e, :, None] + xsq[:, None, :]) - 2.0 * dots,
                             min=0.0)
+        if pos_bits:
+            keys = pack_keys(d, cols, valid[:, None, :], pos_bits)
+            if block_min:
+                keys = class_minima(keys)
+            out_d[s:e], out_i[s:e] = top_keys(
+                keys, kp, pos_bits, tile_off[s:e, None, None])
+            continue
         d = d.masked_fill(~valid[:, None, :], NEG_FILL)
         r = torch.where(valid, rows, -1).to(torch.int32)
         sd, si = torch.sort(d, dim=-1, stable=True)
@@ -162,37 +228,50 @@ def grouped_scan_plain(qpad: torch.Tensor, vecs: torch.Tensor,
     return out_d, out_i
 
 
+def _mode(pos_bits: int, block_min: bool) -> int:
+    """Kernel selection mode: 0 exact, 1 packed, 2 blockmin."""
+    if block_min and not pos_bits:
+        raise ValueError("block_min needs packed keys (pos_bits > 0)")
+    if pos_bits and not 1 <= pos_bits <= 30:
+        raise ValueError(f"pos_bits must lie in [1, 30], got {pos_bits}")
+    return 2 if block_min else int(pos_bits > 0)
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load_library("ivf_scan_grouped")
     f = lib.ivf_grouped_scan
     f.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-                  + [ctypes.c_longlong] + [ctypes.c_int] * 3
+                  + [ctypes.c_longlong] + [ctypes.c_int] * 5
                   + [ctypes.c_void_p])
     f.restype = ctypes.c_int
     g = lib.ivf_grouped_scan_smem_bytes
-    g.argtypes = [ctypes.c_int] * 3
+    g.argtypes = [ctypes.c_int] * 4
     g.restype = ctypes.c_longlong
     return lib
 
 
-def _pick_qs(lib: ctypes.CDLL, qt: int, D: int, kp: int) -> int:
+def _pick_qs(lib: ctypes.CDLL, qt: int, D: int, kp: int, mode: int) -> int:
     """Queries per kernel block: qt, halved while the block's shared
     memory (queries + staged rows + per-query top-kp lists) exceeds the
     card's 227 KB or qt exceeds the block's 64 query slots."""
+    def fits(qs):
+        return (qs <= QS_MAX and
+                lib.ivf_grouped_scan_smem_bytes(qs, D, kp, mode) <= SMEM_MAX)
     qs = qt
-    while ((qs > QS_MAX or lib.ivf_grouped_scan_smem_bytes(qs, D, kp)
-            > SMEM_MAX) and qs % 2 == 0):
+    while not fits(qs) and qs % 2 == 0:
         qs //= 2
-    if qs > QS_MAX or lib.ivf_grouped_scan_smem_bytes(qs, D, kp) > SMEM_MAX:
+    if not fits(qs):
         raise ValueError(f"grouped scan: no block size fits qt={qt}, D={D}, "
                          f"kp={kp} in {SMEM_MAX} bytes of shared memory")
     return qs
 
 
-def _grouped_scan_cuda(qpad, vecs, tile_off, tile_cnt, *, kp, qt, metric):
+def _grouped_scan_cuda(qpad, vecs, tile_off, tile_cnt, *, kp, qt, metric,
+                       pos_bits=0, block_min=False):
     global LAUNCHES
     T = tile_off.shape[0]
     D = qpad.shape[1]
+    mode = _mode(pos_bits, block_min)
     if qpad.dtype != torch.float32 or qpad.ndim != 2 or qpad.shape[0] != T * qt:
         raise ValueError("qpad must be f32 [T * qt, D]")
     if vecs.dtype not in (torch.bfloat16, torch.float32) or vecs.ndim != 2 \
@@ -210,7 +289,7 @@ def _grouped_scan_cuda(qpad, vecs, tile_off, tile_cnt, *, kp, qt, metric):
     if T == 0:
         return out_d, out_i
     lib = _lib()
-    qs = _pick_qs(lib, qt, D, kp)
+    qs = _pick_qs(lib, qt, D, kp, mode)
     sub_per_tile = qt // qs
     with torch.cuda.device(qpad.device):
         stream = torch.cuda.current_stream(qpad.device).cuda_stream
@@ -218,7 +297,8 @@ def _grouped_scan_cuda(qpad, vecs, tile_off, tile_cnt, *, kp, qt, metric):
             qpad.data_ptr(), vecs.data_ptr(), tile_off.data_ptr(),
             tile_cnt.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
             T * sub_per_tile, sub_per_tile, qs, D, vecs.shape[0], kp,
-            int(metric == "ip"), int(vecs.dtype == torch.bfloat16), stream)
+            int(metric == "ip"), int(vecs.dtype == torch.bfloat16), mode,
+            pos_bits, stream)
     if err != 0:
         raise RuntimeError(f"ivf_grouped_scan launch failed: CUDA error {err}")
     LAUNCHES += 1
@@ -227,27 +307,34 @@ def _grouped_scan_cuda(qpad, vecs, tile_off, tile_cnt, *, kp, qt, metric):
 
 def grouped_probe_scan(qpad: torch.Tensor, vecs: torch.Tensor,
                        tile_off: torch.Tensor, tile_cnt: torch.Tensor, *,
-                       kp: int, metric: str = "sqeuclidean", qt: int = QT
+                       kp: int, metric: str = "sqeuclidean", qt: int = QT,
+                       pos_bits: int = 0, block_min: bool = False
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """qpad [T*qt, D] f32 tile-packed queries; vecs [Npad, D]
     cluster-contiguous (bf16 or f32); tile_off/tile_cnt [T] int32.
     Returns (dists [T, qt, kp] f32, csr_rows [T, qt, kp] int32).
+
+    ``pos_bits > 0`` selects by packed keys: it must satisfy
+    ``2**pos_bits >= max list rows`` and rounds distances by
+    <= 2**(pos_bits-24) relative. ``block_min`` (with ``pos_bits``) keeps
+    one candidate per (query, segment, class) before the top-kp.
 
     CPU tensors take ``grouped_scan_plain``; CUDA tensors launch the
     kernel or raise."""
     if metric not in ("sqeuclidean", "ip"):
         raise ValueError(f"grouped scan metric must be sqeuclidean or ip, "
                          f"got {metric!r}")
+    _mode(pos_bits, block_min)
     devs = {t.device for t in (qpad, vecs, tile_off, tile_cnt)}
     if len(devs) != 1:
         raise ValueError(f"grouped scan inputs on several devices: {devs}")
     dev = qpad.device
+    kw = dict(kp=kp, qt=qt, metric=metric, pos_bits=pos_bits,
+              block_min=block_min)
     if dev.type == "cpu":
-        return grouped_scan_plain(qpad, vecs, tile_off, tile_cnt, kp=kp,
-                                  qt=qt, metric=metric)
+        return grouped_scan_plain(qpad, vecs, tile_off, tile_cnt, **kw)
     if dev.type == "cuda":
-        return _grouped_scan_cuda(qpad, vecs, tile_off, tile_cnt, kp=kp,
-                                  qt=qt, metric=metric)
+        return _grouped_scan_cuda(qpad, vecs, tile_off, tile_cnt, **kw)
     raise ValueError(f"no grouped scan for device {dev}")
 
 
@@ -272,7 +359,8 @@ def merge_partials(out_d: torch.Tensor, out_i: torch.Tensor,
 def ivf_grouped_search(q: torch.Tensor, probes: torch.Tensor,
                        vecs: torch.Tensor, offsets: torch.Tensor,
                        counts: torch.Tensor, *, k: int,
-                       metric: str = "sqeuclidean", qt: int = QT
+                       metric: str = "sqeuclidean", qt: int = QT,
+                       pos_bits: int = 0, block_min: bool = False
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full grouped pipeline: probes [B, npad] list ids (sentinel = nlists
     in padding slots). Returns (dists [B, k], csr_rows [B, k])."""
@@ -284,7 +372,8 @@ def ivf_grouped_search(q: torch.Tensor, probes: torch.Tensor,
                                            t_max=t_max)
     qpad = _scatter_tuples(q, pos, npad=npad, qt=qt, t_max=t_max)
     out_d, out_i = grouped_probe_scan(qpad, vecs, tile_off, tile_cnt, kp=kp,
-                                      metric=metric, qt=qt)
+                                      metric=metric, qt=qt, pos_bits=pos_bits,
+                                      block_min=block_min)
     return merge_partials(out_d, out_i, pos.reshape(B, npad), k=k)
 
 

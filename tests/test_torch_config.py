@@ -21,11 +21,11 @@ def test_same_fields_plus_device():
     jf = {f.name for f in dataclasses.fields(JC.NDBConfig)}
     tf = {f.name for f in dataclasses.fields(TC.NDBConfig)}
     assert tf == jf | {"device"}
-    # exact selection is the port's default; the rest mirror the JAX values
+    # every default mirrors the JAX value, packed selection included
     differ = {n for n in jf
               if getattr(TC.NDBConfig(), n) != getattr(JC.NDBConfig(), n)}
-    assert differ == {"ivf_select"}
-    assert TC.NDBConfig().ivf_select == "exact"
+    assert differ == set()
+    assert TC.NDBConfig().ivf_select == "packed"
 
 
 def test_show_set_reset_configure(fresh_config):

@@ -1,4 +1,4 @@
-"""The CUDA kernel on a card, against its plain torch version.
+"""The CUDA kernels on a card, against their plain torch versions.
 
 Skips without a card. This file imports neither jax nor the JAX package
 and uses no conftest fixture, so on a machine with a card and no JAX it
@@ -13,7 +13,9 @@ import torch
 
 from neurondb_tpu_torch import configure, get_config
 from neurondb_tpu_torch.index.ivf import IVFFlatIndex
+from neurondb_tpu_torch.index.ivfpq import IVFPQIndex
 from neurondb_tpu_torch.ops.kernels import ivf_scan_grouped as G
+from neurondb_tpu_torch.ops.kernels import ivfpq_scan as PQS
 
 pytestmark = pytest.mark.cuda
 
@@ -98,8 +100,8 @@ def test_index_on_card_matches_cpu(dev):
     finally:
         configure(store_dtype=old)
     before = G.LAUNCHES
-    gd, gi = gpu.search(q, k=10, nprobe=4)
-    cd, ci = cpu.search(q, k=10, nprobe=4)
+    gd, gi = gpu.search(q, k=10, nprobe=4, select="exact")
+    cd, ci = cpu.search(q, k=10, nprobe=4, select="exact")
     assert G.LAUNCHES == before + 1
     assert float((gi == ci).mean()) >= 0.99
     np.testing.assert_allclose(gd, cd, rtol=RTOL, atol=ATOL)
@@ -114,3 +116,104 @@ def test_bf16_store_on_card(dev):
     assert (i[:, 0] == np.arange(100)).all()
     dv, iv = idx.search(x[:100], k=5, nprobe=4, out="device")
     assert iv.is_cuda and dv.dtype == torch.float32
+
+
+@pytest.mark.parametrize("block_min", [False, True])
+@pytest.mark.parametrize("metric", ["sqeuclidean", "ip"])
+@pytest.mark.parametrize("kp,qt", [(10, 64), (100, 32), (1024, 16)])
+def test_kernel_packed_modes_match_plain(dev, kp, qt, metric, block_min):
+    """Packed and blockmin keys: the kernel's f32 sums run in another
+    order, so a key may round one step (2**(pb-24) relative) apart. Sorted
+    values allclose at rtol 1e-3 + 2 * step (tests/test_pallas_kernels.py),
+    and every kernel row carries its own distance to the key rounding."""
+    rng = np.random.default_rng(kp + qt + block_min)
+    vecs, offsets, counts = _layout(rng, [0, 3, 31, 1024, 1025, 2500, 77], 128)
+    vd = torch.from_numpy(vecs).to(dev, torch.bfloat16)
+    qpad, toff, tcnt = _tiles(rng, dev, counts, offsets, 3 * qt, 6, qt, 128)
+    pb = 12
+    kw = dict(kp=kp, qt=qt, metric=metric, pos_bits=pb, block_min=block_min)
+    before = G.LAUNCHES
+    kd, ki = G.grouped_probe_scan(qpad, vd, toff, tcnt, **kw)
+    pd, pi = G.grouped_scan_plain(qpad, vd, toff, tcnt, **kw)
+    torch.cuda.synchronize()
+    assert G.LAUNCHES == before + 1
+    step = 2.0 ** (pb - 24)
+    live = pd < 1e30
+    assert torch.equal(kd < 1e30, live)
+    torch.testing.assert_close(kd[live], pd[live], rtol=1e-3 + 2 * step,
+                               atol=ATOL)
+    T = toff.shape[0]
+    q = qpad.reshape(T, qt, 1, -1).expand(-1, -1, kp, -1)[ki >= 0]
+    x = vd[ki[ki >= 0].long()].float()
+    dots = (x * q.to(torch.bfloat16).float()).sum(-1)
+    own = -dots if metric == "ip" else torch.clamp(
+        (q * q).sum(-1) + (x * x).sum(-1) - 2 * dots, min=0)
+    torch.testing.assert_close(kd[ki >= 0], own, rtol=RTOL + 2 * step,
+                               atol=ATOL)
+
+
+def _pq_layout(rng, lens, ns):
+    aligned = [(-(-n // 128)) * 128 for n in lens]
+    offsets = np.cumsum([0] + aligned[:-1]).astype(np.int32)
+    npad = -(-sum(aligned) // 1024) * 1024 + 1024
+    codes_t = rng.integers(0, 256, (ns, npad)).astype(np.uint8)
+    return codes_t, offsets, np.asarray(lens, np.int32)
+
+
+@pytest.mark.parametrize("pos_bits", [0, 12])
+@pytest.mark.parametrize("ns", [16, 32])
+@pytest.mark.parametrize("kp,qt", [(10, 64), (80, 16), (256, 32)])
+def test_pq_kernel_matches_plain_bitwise(dev, ns, pos_bits, kp, qt):
+    """The kernel and its plain version sum the same f32 table entries in
+    the same order: identical outputs, ties included."""
+    rng = np.random.default_rng(ns + kp + pos_bits)
+    codes_t, offsets, counts = _pq_layout(
+        rng, [0, 3, 127, 128, 1024, 1025, 2500, 300], ns)
+    nl = len(counts)
+    b = 3 * qt
+    probes = np.argsort(rng.random((b, nl)), axis=1)[:, :6].astype(np.int32)
+    probes[:, 4:] = nl
+    t_max = PQS.tiles_for(b, 6, nl, qt)
+    toff, tcnt, _ = PQS.group_probes(
+        torch.from_numpy(probes).to(dev), torch.from_numpy(offsets).to(dev),
+        torch.from_numpy(counts).to(dev), qt=qt, t_max=t_max)
+    lut = torch.randn((t_max * qt, ns * 256), device=dev)
+    codes = torch.from_numpy(codes_t).to(dev)
+    before = PQS.LAUNCHES
+    kd, ki = PQS.grouped_pq_scan(lut, codes, toff, tcnt, kp=kp, qt=qt,
+                                 pos_bits=pos_bits)
+    pd, pi = PQS.grouped_pq_scan_plain(lut, codes, toff, tcnt, kp=kp, qt=qt,
+                                       pos_bits=pos_bits)
+    torch.cuda.synchronize()
+    assert PQS.LAUNCHES == before + 1
+    assert torch.equal(kd, pd) and torch.equal(ki, pi)
+
+
+def test_ivfpq_index_on_card_matches_cpu(dev):
+    """One IVF-PQ state at 20k rows on the card (kernel) and on the CPU
+    (plain scan), exact selection: the same ids to near-ties; the card's
+    reranked search reaches the exact neighbours."""
+    rng = np.random.default_rng(2)
+    centers = rng.standard_normal((32, 64)).astype(np.float32) * 2
+    x = (centers[rng.integers(0, 32, 20000)]
+         + rng.standard_normal((20000, 64))).astype(np.float32)
+    q = x[:256] + 0.05 * rng.standard_normal((256, 64)).astype(np.float32)
+    cpu = IVFPQIndex(x, nlists=64, n_sub=16, seed=0, keep_originals=True,
+                     device="cpu")
+    arrays, meta = cpu._state()
+    gpu = IVFPQIndex.from_state(arrays, dict(meta, metric="l2", dim=64),
+                                device="cuda")
+    configure(ivf_select="exact")
+    try:
+        before = PQS.LAUNCHES
+        gd, gi = gpu.search(q, k=10, nprobe=8)
+        cd, ci = cpu.search(q, k=10, nprobe=8)
+        assert PQS.LAUNCHES == before + 1
+    finally:
+        get_config().reset("ivf_select")
+    assert float((gi == ci).mean()) >= 0.99
+    np.testing.assert_allclose(gd, cd, rtol=RTOL, atol=ATOL)
+    _, ids = gpu.search(q, k=10, nprobe=8, rerank=8)
+    d = ((q[:, None, :] - x[None]) ** 2).sum(-1)
+    gt = np.argsort(d, 1)[:, :10]
+    assert np.mean([len(set(a) & set(b)) / 10 for a, b in zip(ids, gt)]) >= 0.95

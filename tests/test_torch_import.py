@@ -12,6 +12,7 @@ import torch
 
 from neurondb_tpu_torch.ops.kernels import _build
 from neurondb_tpu_torch.ops.kernels import ivf_scan_grouped as G
+from neurondb_tpu_torch.ops.kernels import ivfpq_scan as PQS
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "neurondb_tpu_torch"
@@ -103,3 +104,50 @@ def test_grouped_scan_rejects_mixed_devices():
     cpu = torch.zeros(1)
     with pytest.raises(ValueError, match="several devices"):
         G.grouped_probe_scan(cpu, meta, cpu, cpu, kp=8)
+
+
+def test_new_modules_import_without_jax():
+    """The IVF-PQ slice's modules load in a fresh interpreter where jax
+    and the JAX package cannot be imported at all."""
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'neurondb_tpu'):\n"
+        "            raise ImportError(name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import neurondb_tpu_torch as nt\n"
+        "from neurondb_tpu_torch.index import pq, ivfpq\n"
+        "from neurondb_tpu_torch.ops.kernels import ivfpq_scan\n"
+        "print(nt.PQIndex.__name__, nt.IVFPQIndex.__name__)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["PQIndex", "IVFPQIndex"]
+
+
+def test_pq_kernel_wrapper_raises_instead_of_falling_back(no_nvcc):
+    before = PQS.LAUNCHES
+    lut = torch.zeros((16, 8 * 256))
+    codes = torch.zeros((8, 2048), dtype=torch.uint8)
+    one = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        PQS._grouped_pq_scan_cuda(lut, codes, one, one + 5, kp=8, qt=16,
+                                  pos_bits=0)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build(["ivf_scan_grouped", "ivfpq_scan"])
+    assert PQS.LAUNCHES == before
+
+
+def test_library_name_follows_shared_headers(tmp_path, monkeypatch):
+    """An edit to a shared header (csrc/*.cuh) renames every library, so
+    a stale build is never loaded."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text("// kernel\n")
+    (csrc / "h.cuh").write_text("// header\n")
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    first = _build.library_path("k")
+    (csrc / "h.cuh").write_text("// header, edited\n")
+    assert _build.library_path("k") != first

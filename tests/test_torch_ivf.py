@@ -42,6 +42,9 @@ def _carry(j: JIVF, metric: str) -> TIVF:
 
 
 def _assert_parity(j, t, q, k=10, **kw):
+    # exact selection on both sides: the JAX package's CPU route is exact,
+    # and the packed default is held to it in tests/test_torch_ivf_select.py
+    kw = dict(kw, select="exact")
     jd, ji = j.search(q, k=k, **kw)
     td, ti = t.search(q, k=k, **kw)
     assert ti.shape == ji.shape
@@ -139,8 +142,8 @@ def test_k_past_rows_pads_with_minus_one(rng):
     x, q = _clustered(rng, 50, 16, ncl=4, nq=6)
     j = JIVF(x, nlists=16, seed=0)
     t = _carry(j, "l2")
-    td, ti = t.search(q, k=100, nprobe=1)
-    jd, ji = j.search(q, k=100, nprobe=1)
+    td, ti = t.search(q, k=100, nprobe=1, select="exact")
+    jd, ji = j.search(q, k=100, nprobe=1, select="exact")
     assert ti.shape == ji.shape == (6, 50)
     np.testing.assert_array_equal(ti, ji)
     assert (ti == -1).any()
@@ -173,13 +176,20 @@ def test_device_output(pair, data):
 
 @pytest.mark.parametrize("select", ["packed", "blockmin", "bogus"])
 def test_unported_select_raises(pair, data, select):
+    """Every selection mode of the JAX package is ported now: only an
+    unknown name raises. Packed is the default, and the approximate
+    coarse knob is served exactly."""
     _, t = pair
     _, q, _ = data
-    with pytest.raises(ValueError, match="ROADMAP queue 2 item 1"):
-        t.search(q, k=10, nprobe=4, select=select)
-    # exact is the default, and approximate knobs are served exactly
+    if select == "bogus":
+        with pytest.raises(ValueError, match="unknown select"):
+            t.search(q, k=10, nprobe=4, select=select)
+        return
+    _, ids = t.search(q, k=10, nprobe=4, select=select)
+    _, exact = t.search(q, k=10, nprobe=4, select="exact")
+    assert recall_at_k(ids, exact) >= 0.9
     d1, i1 = t.search(q, k=10, nprobe=4, coarse_rt=0.5)
-    d2, i2 = t.search(q, k=10, nprobe=4, select="exact")
+    d2, i2 = t.search(q, k=10, nprobe=4, select="packed")
     np.testing.assert_array_equal(i1, i2)
 
 
