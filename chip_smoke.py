@@ -10,7 +10,8 @@ each print their own lines:
 
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles the CUDA kernels from ``neurondb_tpu_torch/csrc``, one
-   nvcc per source, all started together (ptxas registers and spills);
+   nvcc per source, all started together; prints ptxas registers and
+   spills, kept beside each library, so a cached build prints them too;
 3. flat kernel against plain: ``grouped_probe_scan``'s CUDA kernel
    against its plain torch version on the same card tensors, on a ragged
    bf16 CSR layout (list lengths 0, 3, 31, 1024, 1025, 2500, ...), for qt
@@ -75,8 +76,10 @@ RECALL_BAR = 0.95
 PQ_BATCH, PQ_NQ = 8192, 1024
 PQ_SWEEP = ((8, 8), (8, 16), (16, 16), (16, 24))
 KERNELS = ("ivf_scan_grouped", "ivfpq_scan")
-# NVIDIA H100 SXM data sheet: HBM3 bytes/s and f32 (non-tensor) FLOP/s
-HBM_BPS, F32_FLOPS = 3.35e12, 67e12
+# NVIDIA H100 SXM data sheet (dense): HBM3 bytes/s, and FLOP/s by the
+# type of the products: bf16 x bf16 -> f32 on the tensor cores, f32 outside
+HBM_BPS = 3.35e12
+PEAK_FLOPS = {"bf16 tensor core": 989e12, "f32": 67e12}
 SOURCES = {
     "ivf_grouped_scan": ("neurondb_tpu_torch/csrc/ivf_scan_grouped.cu",
                          "neurondb_tpu/ops/pallas/ivf_scan_grouped.py:101"),
@@ -118,7 +121,7 @@ def phase_build():
         _build.load_library(name)
     secs = time.perf_counter() - t0
     for name in KERNELS:
-        for line in _build.BUILD_LOG.get(name, "").splitlines():
+        for line in _build.build_log(name).splitlines():
             kernel = re.search(r"((?:grouped|pq)_scan_kernel)I(.*?)EEv", line)
             if kernel and "Function properties" in line:
                 # the kernel's template arguments: store type, mode
@@ -249,11 +252,12 @@ def _cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def _bound(nbytes, flops):
+def _bound(nbytes, flops, rate):
     """Least time the card could take: the larger of the bytes over HBM's
-    rate and the f32 operations over the f32 peak."""
+    rate and the operations over the card's peak for their type
+    (``PEAK_FLOPS[rate]``)."""
     t_bytes = nbytes / HBM_BPS * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
+    t_ops = flops / PEAK_FLOPS[rate] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -333,9 +337,12 @@ def phase_kernel():
     pb = max(11, int(lens.max() - 1).bit_length())
     tuples, rows, uniq = _probe_work(probes, counts, NLISTS)
     # bytes: the distinct probed rows (bf16) and the real tuples' queries
-    # read once, their top-kp written once; f32 FMAs of the real tuples
+    # read once, their top-kp written once; operations: the real tuples'
+    # products, bf16 x bf16 (q is rounded to the store type) summed in
+    # f32, which the tensor cores compute exactly
     nbytes = uniq * DIM * 2 + tuples * DIM * 4 + tuples * kp * 8
-    bound_ms, bound_by = _bound(nbytes, 2.0 * rows * DIM)
+    rate = "bf16 tensor core" if vecs.dtype == torch.bfloat16 else "f32"
+    bound_ms, bound_by = _bound(nbytes, 2.0 * rows * DIM, rate)
     live_tiles = int((tcnt > 0).sum())
     stats = {}
     for mode, (packed, bmin) in MODES.items():
@@ -359,7 +366,8 @@ def phase_kernel():
             f"({live_tiles} live) x qt {qt}, kp {kp}, pb {kw['pos_bits']}: "
             f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
             f"{bound_ms:.3f} ms ({bound_by}; {nbytes / 1e9:.3f} GB, "
-            f"{2.0 * rows * DIM / 1e9:.1f} GFLOP f32 over {tuples} tuples)")
+            f"{2.0 * rows * DIM / 1e9:.1f} GFLOP at the {rate} peak over "
+            f"{tuples} tuples)")
     log("[kernel] flat: no single PyTorch call computes the grouped scan "
         "with its selection; library_ms is null")
     del vecs, qpad
@@ -471,7 +479,7 @@ def phase_pq_kernel():
     # read once, the real tuples' top-kp written once; one f32 add per
     # table lookup
     nbytes = tuples * L * 4 + uniq * ns + tuples * kp * 8
-    bound_ms, bound_by = _bound(nbytes, float(rows) * ns)
+    bound_ms, bound_by = _bound(nbytes, float(rows) * ns, "f32")
     stats = {}
     for mode in ("exact", "packed"):
         kw = dict(kp=kp, qt=qt, pos_bits=pb if mode == "packed" else 0)
@@ -493,7 +501,8 @@ def phase_pq_kernel():
             f"({int((tcnt > 0).sum())} live) x qt {qt}, kp {kp}, pb "
             f"{kw['pos_bits']}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
             f"bound {bound_ms:.3f} ms ({bound_by}; {nbytes / 1e9:.3f} GB over "
-            f"{tuples} tuples, {rows * ns / 1e9:.2f} G lookups)")
+            f"{tuples} tuples, {rows * ns / 1e9:.2f} G f32 adds at the f32 "
+            f"peak)")
     lut_ms = _cuda_ms(lambda: _pq_tiles(q, probes, cents, cb, offsets, counts,
                                         qt, "sqeuclidean"), 3)
     log(f"[kernel] pq: grouping + build_luts at the headline shapes "

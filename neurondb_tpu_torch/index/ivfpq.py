@@ -10,12 +10,14 @@ two routes on every device:
 - grouped (``_ivfpq_search_grouped``): centroid GEMM, top-nprobe,
   ``group_probes``, per-tuple ADC tables (``build_luts``), the grouped
   PQ scan (the CUDA kernel on a CUDA tensor, its plain torch version on a
-  CPU tensor), ``merge_partials``, then the fused exact rerank over the
-  kept originals;
+  CPU tensor), ``merge_partials``;
 - segment (``_ivfpq_search_device``): per probe, 512-row segments decoded
   and scored with a GEMM, masking tombstoned rows. Taken while deletes
   are outstanding, because the grouped scan sees only codes and would
   score dead rows.
+
+Either route's candidates then take the one exact rerank over the kept
+originals (``_rerank``).
 
 Deliberate divergences from the JAX package:
 - the JAX package takes the segment route on every device but a TPU; the
@@ -25,7 +27,10 @@ Deliberate divergences from the JAX package:
   unknown name raises), where the JAX package reads the env var
   ``NEURONDB_TPU_IVF_SELECT``; probe selection is exact;
 - ``orig_dtype=None`` keeps bf16 originals on CUDA and f32 elsewhere (the
-  JAX package's "bf16 on TPU").
+  JAX package's "bf16 on TPU");
+- one rerank serves both routes and scores (q - x)^2, as the JAX
+  package's segment route does; its grouped route, fused into one jit
+  for the TPU, expands it as |q|^2 + |x|^2 - 2 q.x.
 """
 
 from __future__ import annotations
@@ -118,31 +123,23 @@ def _ivfpq_search_grouped(q, centroids, codebooks, R, codes_t, row_ids,
     return torch.where(ids >= 0, vals, TK.NEG_FILL), ids
 
 
-def _rerank_fused(q, ids, orig, orig_scale, *, k: int, metric: str
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact rerank of the grouped route's candidates ``ids`` [B, C]
-    (original rows, -1 = none): a gather of the originals, f32 products
-    (q rounded to a bf16 store's type), the int8 row scale folded into the
-    products, then the top-k."""
+def _rerank(q, ids, orig, orig_scale, *, k: int, metric: str
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact rerank of candidates ``ids`` [B, C] (original rows, -1 =
+    none): a gather of the originals in f32 (int8 rows times their
+    scale), -q.x (ip) or ||q - x||^2 against the f32 query, then the
+    top-k."""
     idsafe = ids.clamp(min=0).long()
-    qsq = (q * q).sum(1)
+    cand = orig[idsafe].float()                            # [B, C, D]
     if orig.dtype == torch.int8:
-        cand = orig[idsafe].float()                        # [B, C, D]
-        sc = orig_scale[idsafe]                            # [B, C]
-        dots = (cand @ q[:, :, None])[..., 0] * sc
-        csq = (cand * cand).sum(-1) * (sc * sc)
-    else:
-        cand = orig[idsafe].float()
-        dots = (cand @ q.to(orig.dtype).float()[:, :, None])[..., 0]
-        csq = (cand * cand).sum(-1)
+        cand = cand * orig_scale[idsafe][..., None]
     if metric == "ip":
-        dd = -dots
+        dd = -(cand @ q[:, :, None])[..., 0]
     else:
-        dd = torch.clamp(qsq[:, None] + csq - 2.0 * dots, min=0.0)
+        dd = ((q[:, None, :] - cand) ** 2).sum(-1)
     dd = torch.where(ids >= 0, dd, TK.NEG_FILL)
     vals, pos = TK.topk_smallest(dd, k)
-    ids = torch.gather(ids, 1, pos)
-    return torch.where(ids >= 0, vals, TK.NEG_FILL), ids
+    return vals, torch.gather(ids, 1, pos)
 
 
 class IVFPQIndex(BaseIndex):
@@ -358,11 +355,6 @@ class IVFPQIndex(BaseIndex):
                 self._row_ids, self._offsets, self._counts, nprobe,
                 k=coarse_k, metric=metric, nprobe_pad=max(npad, nprobe),
                 pos_bits=pb)
-            if rerank:
-                vals, rows = _rerank_fused(q, rows, self._orig,
-                                           self._orig_scale, k=kk,
-                                           metric=metric)
-                rerank = 0                     # already reranked
         else:
             vals, rows = _ivfpq_search_device(
                 q, self.centroids, self.codebooks, self._R_or_eye(),
@@ -371,17 +363,8 @@ class IVFPQIndex(BaseIndex):
                 max_segs=max(1, -(-self.max_list // SEGMENT)),
                 segment=SEGMENT)
         if rerank:
-            rs = rows.clamp(min=0).long()
-            cand = self._orig[rs].float()
-            if self._orig.dtype == torch.int8:
-                cand = cand * self._orig_scale[rs][..., None]
-            if self.metric == "ip":
-                dd = -(cand @ q[:, :, None])[..., 0]
-            else:
-                dd = ((q[:, None, :] - cand) ** 2).sum(-1)
-            dd = torch.where(rows >= 0, dd, TK.NEG_FILL)
-            vals, pos = TK.topk_smallest(dd, kk)
-            rows = torch.gather(rows, 1, pos)
+            vals, rows = _rerank(q, rows, self._orig, self._orig_scale, k=kk,
+                                 metric=metric)
         else:
             vals, rows = vals[:, :kk], rows[:, :kk]
         if out == "device":

@@ -4,8 +4,9 @@ Each kernel is one ``csrc/<name>.cu`` file with a plain C interface. At
 first use it is compiled with ``nvcc`` for ``sm_90a`` into a shared
 library under ``neurondb_tpu_torch/_build/`` (listed in ``.gitignore``),
 named by a hash of the source, the shared headers and the flags, so an
-edited source rebuilds. The library is then loaded with ``ctypes``. A missing ``nvcc``
-or a failed compile raises: there is no fallback.
+edited source rebuilds; nvcc's output (ptxas registers and spills) is
+kept beside it as ``.log``. The library is then loaded with ``ctypes``. A
+missing ``nvcc`` or a failed compile raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -28,7 +29,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-BUILD_LOG: Dict[str, str] = {}       # name -> nvcc output of the build
 
 
 def find_nvcc() -> str:
@@ -55,6 +55,13 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h}.so"
 
 
+def build_log(name: str) -> str:
+    """nvcc's output from the build of the current library ("" if it is
+    not built)."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
 def build(names: Iterable[str]) -> None:
     """Compile each named ``csrc/<name>.cu`` whose library is missing:
     one nvcc per source, all started together, all waited for."""
@@ -73,11 +80,12 @@ def build(names: Iterable[str]) -> None:
                 text=True)))
         failed = []
         for name, so, tmp, proc in jobs:
-            BUILD_LOG[name] = proc.communicate()[0]
+            out = proc.communicate()[0]
             if proc.returncode != 0:
                 failed.append(f"nvcc failed to build {name}.cu (exit "
-                              f"{proc.returncode}):\n{BUILD_LOG[name]}")
+                              f"{proc.returncode}):\n{out}")
             else:
+                so.with_suffix(".log").write_text(out)
                 os.replace(tmp, so)
         if failed:
             raise RuntimeError("\n".join(failed))

@@ -172,6 +172,35 @@ def top_keys(keys: torch.Tensor, kp: int, pos_bits: int, off: torch.Tensor
     return unpack_keys(sel, pos_bits, off)
 
 
+def select_top(d: torch.Tensor, off: torch.Tensor, valid: torch.Tensor, *,
+               kp: int, pos_bits: int = 0, block_min: bool = False
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The top-kp of distances d [tb, qt, L] over the rows ``off`` [tb] +
+    in-list position, where ``valid`` [tb, L]: (dists, rows) [tb, qt, kp],
+    ascending, padded with (NEG_FILL, -1). Exact (``pos_bits`` 0): ties go
+    to the smaller row (a stable sort over rows in ascending order).
+    Otherwise the kp smallest packed keys, decoded; ``block_min``: of the
+    class minima. The selection rule of both plain scans."""
+    tb, qt, L = d.shape
+    cols = torch.arange(L, device=d.device)
+    if pos_bits:
+        keys = pack_keys(d, cols, valid[:, None, :], pos_bits)
+        if block_min:
+            keys = class_minima(keys)
+        return top_keys(keys, kp, pos_bits, off[:, None, None])
+    kk = min(kp, L)
+    d = d.masked_fill(~valid[:, None, :], NEG_FILL)
+    r = torch.where(valid, off.long()[:, None] + cols, -1).to(torch.int32)
+    sd, si = torch.sort(d, dim=-1, stable=True)
+    out_d = torch.full((tb, qt, kp), NEG_FILL, dtype=torch.float32,
+                       device=d.device)
+    out_i = torch.full((tb, qt, kp), -1, dtype=torch.int32, device=d.device)
+    out_d[..., :kk] = sd[..., :kk]
+    out_i[..., :kk] = torch.gather(r[:, None, :].expand(-1, qt, -1), -1,
+                                   si[..., :kk])
+    return out_d, out_i
+
+
 def grouped_scan_plain(qpad: torch.Tensor, vecs: torch.Tensor,
                        tile_off: torch.Tensor, tile_cnt: torch.Tensor, *,
                        kp: int, qt: int, metric: str = "sqeuclidean",
@@ -180,9 +209,7 @@ def grouped_scan_plain(qpad: torch.Tensor, vecs: torch.Tensor,
     """The kernel's function in plain torch (CPU tensors, tests, and the
     comparison on the card). q is rounded to the store dtype, both sides
     are upcast to f32 before the product, |q|^2 comes from the f32 query
-    and |x|^2 from the stored row. Exact mode: ties go to the smaller row
-    (stable sort over rows in ascending order). ``pos_bits``: the kp
-    smallest packed keys, decoded; ``block_min``: of the class minima."""
+    and |x|^2 from the stored row; the top-kp is ``select_top``'s."""
     T = tile_off.shape[0]
     D = qpad.shape[1]
     dev = qpad.device
@@ -197,7 +224,6 @@ def grouped_scan_plain(qpad: torch.Tensor, vecs: torch.Tensor,
     qh = qf.to(vecs.dtype).float()
     qsq = (qf * qf).sum(-1)                                   # [T, qt]
     cols = torch.arange(lmax, device=dev)
-    kk = min(kp, lmax)
     # tiles per step: bounds the [tb, L, D] gather and [tb, qt, L] scores
     step = max(1, (1 << 26) // (lmax * (D + 2 * qt)))
     for s in range(0, T, step):
@@ -212,19 +238,9 @@ def grouped_scan_plain(qpad: torch.Tensor, vecs: torch.Tensor,
             xsq = (x * x).sum(-1)                             # [tb, L]
             d = torch.clamp((qsq[s:e, :, None] + xsq[:, None, :]) - 2.0 * dots,
                             min=0.0)
-        if pos_bits:
-            keys = pack_keys(d, cols, valid[:, None, :], pos_bits)
-            if block_min:
-                keys = class_minima(keys)
-            out_d[s:e], out_i[s:e] = top_keys(
-                keys, kp, pos_bits, tile_off[s:e, None, None])
-            continue
-        d = d.masked_fill(~valid[:, None, :], NEG_FILL)
-        r = torch.where(valid, rows, -1).to(torch.int32)
-        sd, si = torch.sort(d, dim=-1, stable=True)
-        out_d[s:e, :, :kk] = sd[..., :kk]
-        out_i[s:e, :, :kk] = torch.gather(
-            r[:, None, :].expand(-1, qt, -1), -1, si[..., :kk])
+        out_d[s:e], out_i[s:e] = select_top(
+            d, tile_off[s:e], valid, kp=kp, pos_bits=pos_bits,
+            block_min=block_min)
     return out_d, out_i
 
 

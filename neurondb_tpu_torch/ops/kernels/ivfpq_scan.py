@@ -44,9 +44,8 @@ from neurondb_tpu_torch.ops.kernels.ivf_scan_grouped import (  # noqa: F401
     auto_qt,
     group_probes,
     merge_partials,
-    pack_keys,
+    select_top,
     tiles_for,
-    top_keys,
 )
 
 SEG = 1024        # code columns of tail padding the layout keeps
@@ -106,8 +105,7 @@ def grouped_pq_scan_plain(lutpad: torch.Tensor, codes_t: torch.Tensor,
     """The kernel's function in plain torch (CPU tensors, tests, and the
     comparison on the card): a gather of each row's table entries, summed
     in f32 in subspace order from 0 (the kernel's order, so the two agree
-    bit for bit), then the exact (stable sort over ascending rows) or the
-    packed-key top-kp."""
+    bit for bit), then the flat scan's ``select_top``."""
     T = tile_off.shape[0]
     ns, ncols = codes_t.shape
     dev = lutpad.device
@@ -119,7 +117,6 @@ def grouped_pq_scan_plain(lutpad: torch.Tensor, codes_t: torch.Tensor,
         return out_d, out_i
     lut = lutpad.reshape(T, qt, ns, -1)
     cols = torch.arange(lmax, device=dev)
-    kk = min(kp, lmax)
     step = max(1, (1 << 24) // (lmax * qt))   # bounds the [tb, qt, L] sums
     for s in range(0, T, step):
         e = min(s + step, T)
@@ -130,17 +127,8 @@ def grouped_pq_scan_plain(lutpad: torch.Tensor, codes_t: torch.Tensor,
         for j in range(ns):
             code = codes_t[j][rs].long()[:, None, :].expand(-1, qt, -1)
             d = d + torch.gather(lut[s:e, :, j, :], 2, code)
-        if pos_bits:
-            keys = pack_keys(d, cols, valid[:, None, :], pos_bits)
-            out_d[s:e], out_i[s:e] = top_keys(keys, kp, pos_bits,
-                                              tile_off[s:e, None, None])
-            continue
-        d = d.masked_fill(~valid[:, None, :], NEG_FILL)
-        r = torch.where(valid, rows, -1).to(torch.int32)
-        sd, si = torch.sort(d, dim=-1, stable=True)
-        out_d[s:e, :, :kk] = sd[..., :kk]
-        out_i[s:e, :, :kk] = torch.gather(
-            r[:, None, :].expand(-1, qt, -1), -1, si[..., :kk])
+        out_d[s:e], out_i[s:e] = select_top(d, tile_off[s:e], valid, kp=kp,
+                                            pos_bits=pos_bits)
     return out_d, out_i
 
 

@@ -140,6 +140,27 @@ def test_pq_kernel_wrapper_raises_instead_of_falling_back(no_nvcc):
     assert PQS.LAUNCHES == before
 
 
+def test_build_log_survives_a_cached_build(tmp_path, monkeypatch):
+    """nvcc's output is kept beside the library: a later build that finds
+    the library compiles nothing and still reads the ptxas lines."""
+    calls = tmp_path / "calls"
+    nvcc = tmp_path / "bin" / "nvcc"
+    nvcc.parent.mkdir()
+    nvcc.write_text(f'#!/bin/sh\necho x >> "{calls}"\n'
+                    'while [ "$1" != "-o" ]; do shift; done\n: > "$2"\n'
+                    'echo "ptxas info    : Used 40 registers"\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("PATH", str(nvcc.parent))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_libs", {})
+    assert _build.build_log("ivfpq_scan") == ""
+    _build.build(["ivfpq_scan"])
+    _build.build(["ivfpq_scan"])
+    assert _build.library_path("ivfpq_scan").exists()
+    assert calls.read_text() == "x\n"
+    assert "Used 40 registers" in _build.build_log("ivfpq_scan")
+
+
 def test_library_name_follows_shared_headers(tmp_path, monkeypatch):
     """An edit to a shared header (csrc/*.cuh) renames every library, so
     a stale build is never loaded."""
