@@ -44,9 +44,27 @@ each print their own lines:
    (16, 24) at batch 8,192 over the 2-byte query wire: recall@10 and the
    pipelined QPS (median of 3 reps of 4 batches); exact selection at the
    first point that reaches recall@10 0.95 (it must exist); one search
-   profiled (device time by kernel, busy share); a save/load round trip;
+   profiled (device time by kernel, busy share); a save/load round trip
+   of a 100k-row index (nlists 128, n_sub 32, OPQ: the 1M index's took
+   105-124 s of host compression);
    one search with a delete outstanding (the segment route); then the
-   n_sub = 16 index (no OPQ) at nprobe 4, rerank 0 and 8.
+   n_sub = 16 index (no OPQ) at nprobe 4, rerank 0 and 8;
+9. flash kernel against plain: ``flash_attention``'s CUDA kernel against
+   ``flash_attention_plain`` at the kernel's KV tile, for Dh in {32, 64,
+   128}, S in {1, 100, 128, 300, 512, 513, 1900}, ragged masks, a fully
+   masked row and no mask, bf16 and f32 products; then both modes timed
+   at (64, 12, 512, 64) with a ragged mask, (1, 8, 8192, 128) and
+   (1, 2, 8192, 64) beside the bound, the plain version and
+   ``scaled_dot_product_attention`` on the same inputs (bf16 casts made
+   inside the timed call for the bf16 mode);
+10. cross-encoder main path: a BERT-base export (random weights from a
+   numpy seed) in a temp dir; ``rerank_cross_encoder`` over 256 docs of
+   512 tokens through ``PretrainedCrossEncoder(max_len=512, batch=64)``
+   with the flash launches of that call counted per mode; docs/s
+   pipelined, serial and encode-bound, the tokenizer's share; scores
+   against ``use_flash=False``; one call profiled; ``PretrainedEmbedder``
+   self-retrieval through a cosine ``FlatIndex``; the default
+   ``CrossEncoder()`` and ``TextEmbedder()`` through the kernel.
 
 Any failed check ends the run with a non-zero exit. The line before the
 last is the kernels' JSON record; the last line is
@@ -75,7 +93,23 @@ NPROBES = (1, 2, 4, 8, 12, 16)
 RECALL_BAR = 0.95
 PQ_BATCH, PQ_NQ = 8192, 1024
 PQ_SWEEP = ((8, 8), (8, 16), (16, 16), (16, 24))
-KERNELS = ("ivf_scan_grouped", "ivfpq_scan")
+SAVE_ROWS = 100_000       # the IVF-PQ save/load round trip's index
+KERNELS = ("ivf_scan_grouped", "ivfpq_scan", "flash_attention")
+# flash kernel vs plain: f32 sums in another order; with bf16 products a
+# p within f32 noise of a rounding boundary may round one bf16 step
+# (2^-8) apart, moving an output by up to 2^-8 * (p / l) * |v|
+FLASH_TOL = {True: 2e-3, False: 1e-4}
+REF_TOL = {True: 5e-2, False: 2e-3}     # vs attention_reference (JAX tests)
+FLASH_SHAPES = ((64, 12, 512, 64, True), (1, 8, 8192, 128, False),
+                (1, 2, 8192, 64, False))  # (B, H, S, Dh, ragged mask)
+RR_DOCS, RR_BATCH, RR_LEN, RR_K = 256, 64, 512, 10
+BERT_BASE = dict(vocab=30522, hidden=768, layers=12, heads=12, ff=3072,
+                 max_len=512)
+# scores with the kernel vs use_flash=False: bf16 attention rounding
+# through 12 layers (the plain version on the CPU moved scores by 1.4e-5
+# at 2 layers and 1.6e-5 at 4, BERT-base width, S 512)
+SCORE_TOL = 1e-3
+SELF_HIT_BAR = 0.99
 # NVIDIA H100 SXM data sheet (dense): HBM3 bytes/s, and FLOP/s by the
 # type of the products: bf16 x bf16 -> f32 on the tensor cores, f32 outside
 HBM_BPS = 3.35e12
@@ -85,6 +119,8 @@ SOURCES = {
                          "neurondb_tpu/ops/pallas/ivf_scan_grouped.py:101"),
     "ivfpq_grouped_scan": ("neurondb_tpu_torch/csrc/ivfpq_scan.cu",
                            "neurondb_tpu/ops/pallas/ivfpq_scan.py:60"),
+    "flash_attention": ("neurondb_tpu_torch/csrc/flash_attention.cu",
+                        "neurondb_tpu/ops/pallas/flash_attention.py:68"),
 }
 
 
@@ -94,6 +130,15 @@ def log(msg: str) -> None:
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def _zero_launches():
+    """Every kernel wrapper's launch count to 0 (flash: per mode)."""
+    from neurondb_tpu_torch.ops.kernels import flash_attention as FA
+    from neurondb_tpu_torch.ops.kernels import ivf_scan_grouped as G
+    from neurondb_tpu_torch.ops.kernels import ivfpq_scan as PQS
+    G.LAUNCHES = PQS.LAUNCHES = 0
+    FA.LAUNCHES = dict.fromkeys(FA.LAUNCHES, 0)
 
 
 def phase_device():
@@ -122,7 +167,9 @@ def phase_build():
     secs = time.perf_counter() - t0
     for name in KERNELS:
         for line in _build.build_log(name).splitlines():
-            kernel = re.search(r"((?:grouped|pq)_scan_kernel)I(.*?)EEv", line)
+            kernel = re.search(
+                r"((?:grouped|pq)_scan_kernel|flash_(?:bf16|f32)_kernel)"
+                r"I(.*?)EEv", line)
             if kernel and "Function properties" in line:
                 # the kernel's template arguments: store type, mode
                 line = f"{kernel.group(1)}<{kernel.group(2)}> (mangled)"
@@ -550,6 +597,7 @@ def phase_main():
     import torch
     import neurondb_tpu_torch as nt
     from neurondb_tpu_torch.ml.metrics import recall_at_k
+    from neurondb_tpu_torch.ops.kernels import flash_attention as FA
     from neurondb_tpu_torch.ops.kernels import ivf_scan_grouped as G
     from neurondb_tpu_torch.ops.kernels import ivfpq_scan as PQS
 
@@ -576,7 +624,7 @@ def phase_main():
     if r_flat < 0.99:
         fail(f"FlatIndex recall@10 {r_flat} < 0.99 against float64")
 
-    G.LAUNCHES = PQS.LAUNCHES = 0
+    _zero_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     index = nt.IVFFlatIndex(x, nlists=NLISTS, metric="l2", seed=0,
@@ -657,7 +705,7 @@ def phase_main():
     launches = G.LAUNCHES
     log(f"[main] grouped-scan kernel launches during the IVFFlat path: "
         f"{launches} for {n_grouped} grouped searches; IVF-PQ kernel: "
-        f"{PQS.LAUNCHES}")
+        f"{PQS.LAUNCHES}; flash kernel: {FA.LAUNCHES}")
     if launches != n_grouped or min(per_mode.values()) == 0:
         fail(f"the grouped searches did not all go through the kernel "
              f"({launches} launches, {n_grouped} grouped searches)")
@@ -707,6 +755,7 @@ def phase_ivfpq(x):
     import torch
     import neurondb_tpu_torch as nt
     from neurondb_tpu_torch.ml.metrics import recall_at_k
+    from neurondb_tpu_torch.ops.kernels import flash_attention as FA
     from neurondb_tpu_torch.ops.kernels import ivf_scan_grouped as G
     from neurondb_tpu_torch.ops.kernels import ivfpq_scan as PQS
 
@@ -722,7 +771,7 @@ def phase_ivfpq(x):
         np.concatenate([q] * (PQ_BATCH // PQ_NQ + 1))[:PQ_BATCH]
     ).to(torch.bfloat16)
 
-    G.LAUNCHES = PQS.LAUNCHES = 0
+    _zero_launches()
     n_grouped = 0
     mem0 = torch.cuda.memory_allocated()
     torch.cuda.synchronize()
@@ -776,17 +825,26 @@ def phase_ivfpq(x):
              lambda: search(*chosen))
 
     _, before = search(*chosen)
+    # the round trip on a 100k-row index: the 1M index's took 105-124 s of
+    # host compression, which the cross-encoder phase needs
+    small = nt.IVFPQIndex(x[:SAVE_ROWS], nlists=128, n_sub=32, seed=0,
+                          keep_originals=True, opq=True, orig_dtype="bf16",
+                          device="cuda")
+    kw = dict(k=K, nprobe=chosen[0], rerank=chosen[1])
+    _, s_before = small.search(qpad[:PQ_NQ], **kw)
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        idx.save(tmp)
+        small.save(tmp)
         loaded = nt.IVFPQIndex.load(tmp, device="cuda")
         secs = time.perf_counter() - t0
-    n_grouped += 1
-    _, after = loaded.search(qpad, k=K, nprobe=chosen[0], rerank=chosen[1])
-    if not np.array_equal(before, after):
-        fail(f"IVF-PQ save/load changed {int((before != after).sum())} ids")
-    log(f"[ivfpq] save/load round trip in {secs:.2f} s; ids identical")
-    del loaded
+    n_grouped += 2
+    _, after = loaded.search(qpad[:PQ_NQ], **kw)
+    if not np.array_equal(s_before, after):
+        fail(f"IVF-PQ save/load changed {int((s_before != after).sum())} ids")
+    log(f"[ivfpq] save/load round trip of a {SAVE_ROWS}-row index (nlists "
+        f"128, n_sub 32, OPQ, bf16 originals) in {secs:.2f} s; ids "
+        f"identical")
+    del loaded, small
 
     victims = np.unique(before[:PQ_NQ, 0])[:100]
     removed = idx.delete(victims)
@@ -820,11 +878,351 @@ def phase_ivfpq(x):
     launches = PQS.LAUNCHES
     log(f"[ivfpq] IVF-PQ kernel launches during the IVF-PQ path: {launches} "
         f"for {n_grouped} grouped searches (packed {per_mode['packed']} in "
-        f"the sweep, exact {per_mode['exact']}); flat kernel: {G.LAUNCHES}")
+        f"the sweep, exact {per_mode['exact']}); flat kernel: {G.LAUNCHES}; "
+        f"flash kernel: {FA.LAUNCHES}")
     if launches != n_grouped or min(per_mode.values()) == 0:
         fail(f"the grouped IVF-PQ searches did not all go through the kernel "
              f"({launches} launches, {n_grouped} grouped searches)")
     return per_mode
+
+
+def _flash_inputs(gen, B, H, S, dh, ragged, device):
+    """q, k, v [B, H, S, Dh] as strided views of [B, S, H, Dh] (the dense
+    layers' layout, as the encoders pass them) and a ragged int32 mask
+    (lengths from S/2 to S) or None."""
+    import torch
+    q, k, v = (torch.randn((B, S, H, dh), generator=gen, device=device)
+               .transpose(1, 2) for _ in range(3))
+    mask = None
+    if ragged:
+        lens = torch.randint(max(1, S // 2), S + 1, (B,), generator=gen,
+                             device=device)
+        lens[0] = S
+        mask = (torch.arange(S, device=device)[None] < lens[:, None]).int()
+    return q, k, v, mask
+
+
+def phase_flash_kernel():
+    import torch
+    import torch.nn.functional as F
+    from neurondb_tpu_torch.ops.kernels import flash_attention as FA
+    dev = torch.device("cuda")
+    lib = FA._lib()
+    if (lib.flash_attention_kv_tile(1), lib.flash_attention_kv_tile(0)) != \
+            (FA.KV_TILE, FA.KV_TILE_F32):
+        fail("flash kernel's KV tiles differ from the wrapper's")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    errs = {True: 0.0, False: 0.0}
+    n_cases = 0
+    for bf16 in (True, False):
+        tile = FA.KV_TILE if bf16 else FA.KV_TILE_F32
+        for dh in (32, 64, 128):
+            for S in (1, 100, 128, 300, 512, 513, 1900):
+                for masking in ("ragged", "full_row", "none"):
+                    B, H = 3, 2
+                    q, k, v, _ = _flash_inputs(gen, B, H, S, dh, False, dev)
+                    mask = None
+                    if masking != "none":
+                        # lengths crossing KV tiles: S, S/3, S - 65
+                        lens = torch.tensor([S, max(1, S // 3),
+                                             max(1, S - 65)], device=dev)
+                        mask = (torch.arange(S, device=dev)[None]
+                                < lens[:, None]).int()
+                        if masking == "full_row":
+                            mask[1] = 0
+                    got = FA.flash_attention(q, k, v, mask, bf16=bf16)
+                    want = FA.flash_attention_plain(q, k, v, mask, bf16=bf16,
+                                                    kv_tile=tile)
+                    torch.cuda.synchronize()
+                    label = f"flash bf16={bf16} Dh={dh} S={S} {masking}"
+                    if got.shape != (B, H, S, dh) or \
+                            not bool(torch.isfinite(got).all()):
+                        fail(f"{label}: wrong shape or non-finite output")
+                    err = float((got - want).abs().max())
+                    if not torch.allclose(got, want, rtol=FLASH_TOL[bf16],
+                                          atol=FLASH_TOL[bf16]):
+                        fail(f"{label}: kernel and plain differ by {err}")
+                    if masking == "full_row":
+                        ref = FA.attention_reference(q[1:2], k[1:2], v[1:2],
+                                                     mask[1:2])
+                        if not torch.allclose(got[1:2], ref,
+                                              rtol=REF_TOL[bf16],
+                                              atol=REF_TOL[bf16]):
+                            fail(f"{label}: the fully masked row is not the "
+                                 f"mean of v")
+                    errs[bf16] = max(errs[bf16], err)
+                    n_cases += 1
+    log(f"[flash] {n_cases} cases match the plain version at the kernel's "
+        f"KV tile ({FA.KV_TILE} bf16, {FA.KV_TILE_F32} f32; rtol = atol = "
+        f"{FLASH_TOL[True]} bf16, {FLASH_TOL[False]} f32), fully masked rows "
+        f"match attention_reference; max |kernel - plain| bf16 "
+        f"{errs[True]:.3e}, f32 {errs[False]:.3e}")
+
+    stats = {}
+    for B, H, S, dh, ragged in FLASH_SHAPES:
+        q, k, v, mask = _flash_inputs(gen, B, H, S, dh, ragged, dev)
+        keys = int(mask.sum()) if ragged else B * S    # real keys per query
+        amask = None if mask is None else mask.bool()[:, None, None, :]
+        # bytes: q, k, v (f32, as the kernel reads them) and the int32
+        # mask read once, the f32 output written once; operations: 2 * 2
+        # * Dh per (query, real key) pair of each head
+        nbytes = 4 * q.numel() * 4 + (0 if mask is None else mask.numel() * 4)
+        flops = 4.0 * H * S * keys * dh
+        # the library call for each mode: SDPA on the f32 inputs, and on
+        # bf16 casts of them made inside the timed call (the kernel's bf16
+        # mode reads the same f32 inputs and rounds them itself)
+        lib = {"f32": _cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=amask), 10),
+               "bf16": _cuda_ms(lambda: F.scaled_dot_product_attention(
+                   q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                   attn_mask=amask), 10)}
+        for bf16 in (True, False):
+            tile = FA.KV_TILE if bf16 else FA.KV_TILE_F32
+            got = FA.flash_attention(q, k, v, mask, bf16=bf16)
+            want = FA.flash_attention_plain(q, k, v, mask, bf16=bf16,
+                                            kv_tile=tile)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            if not torch.allclose(got, want, rtol=FLASH_TOL[bf16],
+                                  atol=FLASH_TOL[bf16]):
+                fail(f"flash {(B, H, S, dh)} bf16={bf16}: kernel and plain "
+                     f"differ by {err}")
+            del got, want
+            ms = _cuda_ms(lambda: FA.flash_attention(q, k, v, mask,
+                                                     bf16=bf16), 10)
+            plain_ms = _cuda_ms(lambda: FA.flash_attention_plain(
+                q, k, v, mask, bf16=bf16, kv_tile=tile), 2)
+            rate = "bf16 tensor core" if bf16 else "f32"
+            bound_ms, bound_by = _bound(nbytes, flops, rate)
+            mode = "bf16" if bf16 else "f32"
+            log(f"[flash] {mode:4s} (B, H, S, Dh) = {(B, H, S, dh)}"
+                f"{', ragged mask' if ragged else ', no mask'}: kernel "
+                f"{ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+                f"{plain_ms:.3f} ms, SDPA {mode} {lib[mode]:.3f} ms (the other "
+                f"mode's {lib['f32' if bf16 else 'bf16']:.3f} ms), bound "
+                f"{bound_ms:.3f} ms ({bound_by}; "
+                f"{nbytes / 1e9:.3f} GB, {flops / 1e9:.1f} GFLOP at the "
+                f"{rate} peak); max |kernel - plain| {err:.3e}")
+            if (B, H, S, dh) == FLASH_SHAPES[0][:4]:
+                stats[mode] = {"max_abs_err": max(errs[bf16], err), "ms": ms,
+                               "plain_ms": plain_ms, "bound_ms": bound_ms,
+                               "bound_by": bound_by,
+                               "library_ms": lib[mode]}
+        del q, k, v, mask
+        torch.cuda.empty_cache()
+    return stats
+
+
+def _rerank_vocab():
+    """The synthetic WordPiece vocab of scripts/bench_rerank.py:39-47."""
+    return (["[PAD]", "[UNK]", "[CLS]", "[SEP]"] + [f"w{i}" for i in range(2000)]
+            + [f"##s{i}" for i in range(200)])
+
+
+def _write_bert_export(path, seed=0):
+    """weights.npz under the HF names (Linear weights [out, in]), random
+    N(0, 0.02) weights from a numpy seed, zero biases, unit LayerNorm
+    gains, a one-logit classifier; vocab.txt; config.json."""
+    rng = np.random.default_rng(seed)
+    c = BERT_BASE
+    h, ff = c["hidden"], c["ff"]
+
+    def rnd(*shape):
+        return (rng.standard_normal(shape, np.float32) * 0.02)
+
+    st = {"embeddings.word_embeddings.weight": rnd(c["vocab"], h),
+          "embeddings.position_embeddings.weight": rnd(c["max_len"], h),
+          "embeddings.token_type_embeddings.weight": rnd(2, h),
+          "embeddings.LayerNorm.weight": np.ones(h, np.float32),
+          "embeddings.LayerNorm.bias": np.zeros(h, np.float32),
+          "pooler.dense.weight": rnd(h, h),
+          "pooler.dense.bias": np.zeros(h, np.float32),
+          "classifier.weight": rnd(1, h),
+          "classifier.bias": np.zeros(1, np.float32)}
+    for i in range(c["layers"]):
+        pre = f"bert.encoder.layer.{i}."
+        for name, (o, n) in (("attention.self.query", (h, h)),
+                             ("attention.self.key", (h, h)),
+                             ("attention.self.value", (h, h)),
+                             ("attention.output.dense", (h, h)),
+                             ("intermediate.dense", (ff, h)),
+                             ("output.dense", (h, ff))):
+            st[pre + name + ".weight"] = rnd(o, n)
+            st[pre + name + ".bias"] = np.zeros(o, np.float32)
+        for name in ("attention.output.LayerNorm", "output.LayerNorm"):
+            st[pre + name + ".weight"] = np.ones(h, np.float32)
+            st[pre + name + ".bias"] = np.zeros(h, np.float32)
+    np.savez(os.path.join(path, "weights.npz"), **st)
+    with open(os.path.join(path, "vocab.txt"), "w") as f:
+        f.write("\n".join(_rerank_vocab()))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"hidden": h, "heads": c["heads"], "layers": c["layers"],
+                   "max_len": c["max_len"], "lowercase": True}, f)
+    return sum(a.size for a in st.values())
+
+
+def phase_rerank():
+    import torch
+    import neurondb_tpu_torch as nt
+    from neurondb_tpu_torch.ml.transformer import (CrossEncoder,
+                                                   PretrainedCrossEncoder,
+                                                   PretrainedEmbedder,
+                                                   TextEmbedder)
+    from neurondb_tpu_torch.ops.kernels import flash_attention as FA
+    from neurondb_tpu_torch.ops.kernels import ivf_scan_grouped as G
+    from neurondb_tpu_torch.ops.kernels import ivfpq_scan as PQS
+    from neurondb_tpu_torch.search.rerank import rerank_cross_encoder
+
+    rng = np.random.default_rng(0)         # scripts/bench_rerank.py:48-52
+
+    def mktext(n_words):
+        return " ".join(f"w{int(i)}" for i in rng.integers(0, 2000, n_words))
+
+    query = mktext(24)
+    docs = [mktext(480) for _ in range(RR_DOCS)]   # fills 512 tokens
+    with tempfile.TemporaryDirectory() as wdir:
+        t0 = time.perf_counter()
+        n_params = _write_bert_export(wdir)
+        t1 = time.perf_counter()
+        ce = PretrainedCrossEncoder(wdir, max_len=RR_LEN, batch=RR_BATCH,
+                                    device="cuda")
+        emb = PretrainedEmbedder(wdir, max_len=128, device="cuda")
+        torch.cuda.synchronize()
+        log(f"[rerank] BERT-base export ({n_params / 1e6:.1f} M params, "
+            f"{BERT_BASE}) written in {t1 - t0:.2f} s, loaded onto the card "
+            f"twice (cross-encoder, embedder) in "
+            f"{time.perf_counter() - t1:.2f} s; use_flash {ce.use_flash}")
+    if not ce.use_flash or ce.model.tok_emb.device.type != "cuda":
+        fail("the cross-encoder must run on the card with the flash kernel")
+
+    def call():
+        return rerank_cross_encoder(query, docs, ce, k=RR_K)
+
+    t0 = time.perf_counter()
+    call()                                           # warm: cuBLAS, caches
+    warm_s = time.perf_counter() - t0
+    _zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scores, order = call()
+    main_s = time.perf_counter() - t0
+    launches = dict(FA.LAUNCHES)
+    want = BERT_BASE["layers"] * -(-RR_DOCS // RR_BATCH)
+    log(f"[rerank] main path: rerank_cross_encoder(query of 24 words, "
+        f"{RR_DOCS} docs of 480 words, k {RR_K}) through "
+        f"PretrainedCrossEncoder(max_len {RR_LEN}, batch {RR_BATCH}) in "
+        f"{main_s * 1e3:.1f} ms (warm-up call {warm_s * 1e3:.1f} ms); flash "
+        f"launches {launches} (want bf16 {want}, f32 0), flat {G.LAUNCHES}, "
+        f"IVF-PQ {PQS.LAUNCHES}")
+    if launches != {"bf16": want, "f32": 0}:
+        fail(f"the cross-encoder made flash launches {launches}, not bf16 "
+             f"{want} and f32 0")
+    if scores.shape != (RR_K,) or not np.isfinite(scores).all() or \
+            not (np.diff(scores) <= 0).all():
+        fail("rerank scores must be k finite values, descending")
+
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        walls.append(time.perf_counter() - t0)
+    pipelined = RR_DOCS / float(np.median(walls))
+
+    def serial():
+        # a host sync per sub-batch: tokenizer and card strictly alternate
+        return np.concatenate([ce(query, docs[s:s + RR_BATCH], batch=0)
+                               for s in range(0, RR_DOCS, RR_BATCH)])
+    serial()
+    s_walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        s_scores = serial()
+        s_walls.append(time.perf_counter() - t0)
+    serial_rate = RR_DOCS / float(np.median(s_walls))
+
+    t0 = time.perf_counter()
+    enc = [ce.tok.encode_pair(query, d, RR_LEN) for d in docs]
+    tok_s = time.perf_counter() - t0
+    ids = torch.from_numpy(np.stack([e[0] for e in enc])).cuda()
+    types = torch.from_numpy(np.stack([e[1] for e in enc])).cuda()
+    real = int((ids > 0).sum())
+
+    def encode_only():
+        return [ce.model(ids[s:s + RR_BATCH], types[s:s + RR_BATCH],
+                         use_flash=True)["score"]
+                for s in range(0, RR_DOCS, RR_BATCH)]
+    encode_only()
+    e_walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        encode_only()
+        torch.cuda.synchronize()
+        e_walls.append(time.perf_counter() - t0)
+    enc_s = float(np.median(e_walls))
+    log(f"[rerank] docs/s: pipelined {pipelined:.1f} (median of "
+        f"{[round(w * 1e3, 1) for w in walls]} ms), serial {serial_rate:.1f} "
+        f"(median of {[round(w * 1e3, 1) for w in s_walls]} ms), encode-bound "
+        f"{RR_DOCS / enc_s:.1f} ({enc_s * 1e3:.1f} ms for {RR_DOCS} docs); "
+        f"tokenizer {tok_s * 1e3:.1f} ms for {RR_DOCS} pairs (warm word memo), "
+        f"share {tok_s / (tok_s + enc_s):.3f} of tokenize + encode; "
+        f"{real} real tokens of {RR_DOCS * RR_LEN}")
+
+    full = ce(query, docs)
+    ce.use_flash = False
+    ref = ce(query, docs)
+    ce.use_flash = True
+    diff = float(np.abs(full - ref).max())
+    top_k = set(np.argsort(-full, kind="stable")[:RR_K])
+    top_r = set(np.argsort(-ref, kind="stable")[:RR_K])
+    log(f"[rerank] scores with the kernel vs use_flash=False on the card: "
+        f"max |diff| {diff:.3e} (tolerance {SCORE_TOL}), score range "
+        f"{full.min():.4f}..{full.max():.4f}, top-{RR_K} overlap "
+        f"{len(top_k & top_r)}/{RR_K}; serial vs pipelined scores max |diff| "
+        f"{float(np.abs(s_scores - full).max()):.3e}")
+    if diff > SCORE_TOL or not np.isfinite(full).all():
+        fail(f"flash scores differ from use_flash=False by {diff}")
+    if not np.allclose(s_scores, full, rtol=1e-5, atol=1e-5):
+        fail("serial (one-shot sub-batches) and pipelined scores differ")
+
+    _profile(f"rerank profile {RR_DOCS} docs", call)
+    del ce, ids, types
+    torch.cuda.empty_cache()
+
+    # the embedder: 4,096 texts into a cosine FlatIndex; 1,024 of them
+    # embedded again in another batch order must find themselves
+    texts = [mktext(int(n)) for n in rng.integers(8, 100, 4096)]
+    t0 = time.perf_counter()
+    x = emb(texts)
+    embed_s = time.perf_counter() - t0
+    index = nt.FlatIndex(x, metric="cosine", device="cuda")
+    pick = rng.permutation(len(texts))[:1024]
+    _, hits = index.search(emb([texts[i] for i in pick]), k=1)
+    rate = float((hits[:, 0] == pick).mean())
+    log(f"[rerank] PretrainedEmbedder(max_len 128): {len(texts)} texts "
+        f"embedded in {embed_s:.2f} s ({x.shape}, unit norm "
+        f"{np.allclose(np.linalg.norm(x, axis=1), 1.0, atol=1e-5)}); "
+        f"self-retrieval through FlatIndex(cosine), 1,024 queries in "
+        f"another batch order: {rate:.4f} (bar {SELF_HIT_BAR})")
+    if rate < SELF_HIT_BAR or not np.isfinite(x).all():
+        fail(f"embedder self-retrieval {rate} < {SELF_HIT_BAR}")
+    del emb, index
+    torch.cuda.empty_cache()
+
+    before = dict(FA.LAUNCHES)
+    few = docs[:100]
+    small = CrossEncoder(device="cuda")(query, few)
+    te = TextEmbedder(device="cuda")(few[:10])
+    n = FA.LAUNCHES["bf16"] - before["bf16"]
+    want = 4 * -(-len(few) // 64) + 4          # 4 layers each, batch 64
+    log(f"[rerank] default CrossEncoder() scored {len(few)} docs and "
+        f"TextEmbedder() embedded 10 texts (hash tokenizer, pre-LN, hidden "
+        f"256): flash launches {n} (want {want})")
+    if n != want or FA.LAUNCHES["f32"] != before["f32"] or \
+            not (np.isfinite(small).all() and np.isfinite(te).all()):
+        fail("the default encoders did not run through the flash kernel")
+    return launches
 
 
 def main(argv):
@@ -834,8 +1232,10 @@ def main(argv):
     phase_build()
     flat_stats = phase_kernel()
     pq_stats = phase_pq_kernel()
+    flash_stats = phase_flash_kernel()
     flat_launches = {m: None for m in MODES}
     pq_launches = {"exact": None, "packed": None}
+    flash_launches = {"bf16": None, "f32": None}
     if not kernels_only:
         index, qb, chosen, flat_launches, x = phase_main()
         _profile(f"profile nprobe {chosen} batch {BATCH}",
@@ -844,10 +1244,13 @@ def main(argv):
         del index
         torch.cuda.empty_cache()
         pq_launches = phase_ivfpq(x)
+        del x
+        flash_launches = phase_rerank()
     kernels = []
     for name, stats, launches in (
             ("ivf_grouped_scan", flat_stats, flat_launches),
-            ("ivfpq_grouped_scan", pq_stats, pq_launches)):
+            ("ivfpq_grouped_scan", pq_stats, pq_launches),
+            ("flash_attention", flash_stats, flash_launches)):
         source, replaces = SOURCES[name]
         for mode, s in stats.items():
             kernels.append({"name": name, "mode": mode, "route": "cuda",

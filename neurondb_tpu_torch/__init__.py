@@ -2,15 +2,21 @@
 
 A second package beside ``neurondb_tpu`` (the JAX reference, which it
 never imports). It keeps the JAX package's module names so each part has
-a findable counterpart, and holds the IVFFlat and IVF-PQ search paths:
+a findable counterpart, and holds the IVFFlat and IVF-PQ search paths and
+the cross-encoder rerank and text-embedding path:
 
 - ``ops``: distances, top-k, and ``ops.kernels`` with the hand-written
-  CUDA kernels of the list-grouped IVF scan and the IVF-PQ scan
-  (``csrc/``), built for ``sm_90a`` at first use;
-- ``ml``: k-means (single and batched over subspaces) and recall;
+  CUDA kernels of the list-grouped IVF scan, the IVF-PQ scan and flash
+  attention (``csrc/``), built for ``sm_90a`` at first use;
+- ``ml``: k-means (single and batched over subspaces), recall, the
+  WordPiece tokenizer, the BERT and pre-LN encoders with their
+  embedders and cross-encoders;
 - ``index``: ``FlatIndex``, ``IVFFlatIndex``, ``PQIndex`` and
-  ``IVFPQIndex``, each constructor taking a ``device`` (default from
-  ``config.device``).
+  ``IVFPQIndex``;
+- ``search``: the rerankers.
+
+Every index and model constructor takes a ``device`` (default from
+``config.device``: the card when one is present).
 """
 
 from neurondb_tpu_torch.version import __version__

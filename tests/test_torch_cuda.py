@@ -14,6 +14,9 @@ import torch
 from neurondb_tpu_torch import configure, get_config
 from neurondb_tpu_torch.index.ivf import IVFFlatIndex
 from neurondb_tpu_torch.index.ivfpq import IVFPQIndex
+from neurondb_tpu_torch.ml import bert as TB
+from neurondb_tpu_torch.ml.params import tree_map
+from neurondb_tpu_torch.ops.kernels import flash_attention as FA
 from neurondb_tpu_torch.ops.kernels import ivf_scan_grouped as G
 from neurondb_tpu_torch.ops.kernels import ivfpq_scan as PQS
 
@@ -217,3 +220,69 @@ def test_ivfpq_index_on_card_matches_cpu(dev):
     d = ((q[:, None, :] - x[None]) ** 2).sum(-1)
     gt = np.argsort(d, 1)[:, :10]
     assert np.mean([len(set(a) & set(b)) / 10 for a, b in zip(ids, gt)]) >= 0.95
+
+
+# flash kernel vs its plain version at the kernel's KV tile: f32 sums in
+# another order (fmaf and the tensor cores' accumulation); with bf16
+# products a p within f32 noise of a rounding boundary may round one bf16
+# step apart, moving an output by up to 2^-8 * (p / l) * |v|
+FLASH_TOL = {False: 1e-4, True: 2e-3}
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("S,masking", [(1, "none"), (100, "ragged"),
+                                       (128, "none"), (300, "ragged"),
+                                       (513, "full_row"), (1900, "ragged")])
+def test_flash_kernel_matches_plain(dev, bf16, dh, S, masking):
+    gen = torch.Generator(device=dev).manual_seed(S + dh)
+    B, H = 3, 2
+    # the dense layers' layout: [B, S, H, Dh] viewed as [B, H, S, Dh]
+    q, k, v = (torch.randn((B, S, H, dh), generator=gen, device=dev)
+               .transpose(1, 2) for _ in range(3))
+    mask = None
+    if masking != "none":
+        lens = torch.tensor([S, max(1, S // 3), max(1, S - 65)], device=dev)
+        mask = (torch.arange(S, device=dev)[None] < lens[:, None]).int()
+        if masking == "full_row":
+            mask[1] = 0
+    before = dict(FA.LAUNCHES)
+    got = FA.flash_attention(q, k, v, mask, bf16=bf16)
+    tile = FA.KV_TILE if bf16 else FA.KV_TILE_F32
+    want = FA.flash_attention_plain(q, k, v, mask, bf16=bf16, kv_tile=tile)
+    torch.cuda.synchronize()
+    mode = "bf16" if bf16 else "f32"
+    assert FA.LAUNCHES == {**before, mode: before[mode] + 1}
+    assert got.shape == (B, H, S, dh) and bool(torch.isfinite(got).all())
+    tol = FLASH_TOL[bf16]
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+def test_flash_kernel_tiles_match_the_wrapper(dev):
+    lib = FA._lib()
+    assert lib.flash_attention_kv_tile(1) == FA.KV_TILE
+    assert lib.flash_attention_kv_tile(0) == FA.KV_TILE_F32
+
+
+def test_tiny_bert_on_card_matches_cpu(dev):
+    """One parameter tree on the card (flash kernel) and on the CPU
+    (reference attention): the same scores to bf16 attention rounding."""
+    p = TB.init_bert_params(0, vocab_size=200, hidden=128, layers=2,
+                            heads=2, ff=256, max_len=96)
+    rng = np.random.default_rng(0)
+    ids = rng.integers(5, 200, (5, 96)).astype(np.int32)
+    for i, n in enumerate((96, 40, 1, 65, 70)):
+        ids[i, n:] = 0
+    types = (rng.random((5, 96)) < 0.5).astype(np.int32)
+    cpu = TB.bert_encode(p, torch.from_numpy(ids), torch.from_numpy(types),
+                         heads=2)
+    pd = tree_map(lambda t: t.to(dev), p)
+    before = dict(FA.LAUNCHES)
+    card = TB.bert_encode(pd, torch.from_numpy(ids).to(dev),
+                          torch.from_numpy(types).to(dev), heads=2,
+                          use_flash=True)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES == {"bf16": before["bf16"] + 2, "f32": before["f32"]}
+    for key in ("score", "pooled", "mean_pooled"):
+        torch.testing.assert_close(card[key].cpu(), cpu[key], rtol=5e-3,
+                                   atol=5e-3)

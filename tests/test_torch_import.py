@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from neurondb_tpu_torch.ops.kernels import _build
+from neurondb_tpu_torch.ops.kernels import flash_attention as FA
 from neurondb_tpu_torch.ops.kernels import ivf_scan_grouped as G
 from neurondb_tpu_torch.ops.kernels import ivfpq_scan as PQS
 
@@ -172,3 +173,63 @@ def test_library_name_follows_shared_headers(tmp_path, monkeypatch):
     first = _build.library_path("k")
     (csrc / "h.cuh").write_text("// header, edited\n")
     assert _build.library_path("k") != first
+
+
+def test_rerank_slice_imports_without_jax():
+    """The encoder/rerank slice's modules load where jax and the JAX
+    package cannot be imported, and importing them loads neither."""
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'neurondb_tpu'):\n"
+        "            raise ImportError(name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import neurondb_tpu_torch.ml.transformer, neurondb_tpu_torch.search.rerank\n"
+        "from neurondb_tpu_torch.ml import bert, params, tokenizer\n"
+        "from neurondb_tpu_torch.search import bm25\n"
+        "from neurondb_tpu_torch.ops.kernels import flash_attention\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'neurondb_tpu')))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_flash_wrapper_raises_instead_of_falling_back(no_nvcc):
+    """The CUDA branch builds csrc/flash_attention.cu or raises; it never
+    runs the plain version."""
+    before = dict(FA.LAUNCHES)
+    q = torch.zeros((1, 2, 8, 64))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        FA._flash_attention_cuda(q, q, q, None, bf16=True)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build(["flash_attention"])
+    assert FA.LAUNCHES == before
+
+
+def test_flash_wrapper_rejects_other_head_widths():
+    q = torch.zeros((1, 2, 8, 48))
+    with pytest.raises(ValueError, match="head widths"):
+        FA._flash_attention_cuda(q, q, q, None, bf16=True)
+    with pytest.raises(ValueError, match="mask"):
+        FA._flash_attention_cuda(torch.zeros((1, 2, 8, 64)),
+                                 torch.zeros((1, 2, 8, 64)),
+                                 torch.zeros((1, 2, 8, 64)),
+                                 torch.ones((2, 8)), bf16=True)
+    meta = torch.empty((1, 2, 8, 64), device="meta")
+    with pytest.raises(ValueError, match="several devices"):
+        FA.flash_attention(meta, q, q)
+
+
+def test_cpu_tensors_never_launch_flash():
+    """The encoders on the CPU, with use_flash on, take the plain version."""
+    from neurondb_tpu_torch.ml.transformer import CrossEncoder, TextEmbedder
+    before = dict(FA.LAUNCHES)
+    ce = CrossEncoder(dim=64, max_len=16, use_flash=True, device="cpu")
+    scores = ce("a query", ["one doc", "another doc", "third"], batch=2)
+    emb = TextEmbedder(dim=64, max_len=16, use_flash=True, device="cpu")
+    assert emb(["text"]).shape == (1, 64) and scores.shape == (3,)
+    assert FA.LAUNCHES == before == {"bf16": 0, "f32": 0}
