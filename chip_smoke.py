@@ -94,7 +94,8 @@ RECALL_BAR = 0.95
 PQ_BATCH, PQ_NQ = 8192, 1024
 PQ_SWEEP = ((8, 8), (8, 16), (16, 16), (16, 24))
 SAVE_ROWS = 100_000       # the IVF-PQ save/load round trip's index
-KERNELS = ("ivf_scan_grouped", "ivfpq_scan", "flash_attention")
+KERNELS = ("ivf_scan_grouped", "ivfpq_scan", "flash_attention",
+           "ivf_probe_scan")
 # flash kernel vs plain: f32 sums in another order; with bf16 products a
 # p within f32 noise of a rounding boundary may round one bf16 step
 # (2^-8) apart, moving an output by up to 2^-8 * (p / l) * |v|
@@ -121,7 +122,15 @@ SOURCES = {
                            "neurondb_tpu/ops/pallas/ivfpq_scan.py:60"),
     "flash_attention": ("neurondb_tpu_torch/csrc/flash_attention.cu",
                         "neurondb_tpu/ops/pallas/flash_attention.py:68"),
+    "ivf_probe_scan": ("neurondb_tpu_torch/csrc/ivf_probe_scan.cu",
+                       "neurondb_tpu/ops/pallas/ivf_scan.py:36"),
 }
+# the probe kernel's ragged layout: list lengths around its 512-row segment
+PROBE_LENS = (0, 3, 31, 511, 512, 513, 1024, 1025, 2500)
+PROBE_B = 37              # queries per case: no multiple of 16
+PROBE_CASES = tuple((k, npb) for k in (1, 10, 100, 512) for npb in (3, 6)) + \
+    ((1000, 1), (1000, 3))  # (k, nprobe): 1000 caps per probe and pads
+ROUTE_AGREE_BAR = 0.99    # probe route ids vs the grouped exact mode's
 
 
 def log(msg: str) -> None:
@@ -135,9 +144,10 @@ def fail(msg: str) -> None:
 def _zero_launches():
     """Every kernel wrapper's launch count to 0 (flash: per mode)."""
     from neurondb_tpu_torch.ops.kernels import flash_attention as FA
+    from neurondb_tpu_torch.ops.kernels import ivf_scan as PS
     from neurondb_tpu_torch.ops.kernels import ivf_scan_grouped as G
     from neurondb_tpu_torch.ops.kernels import ivfpq_scan as PQS
-    G.LAUNCHES = PQS.LAUNCHES = 0
+    G.LAUNCHES = PQS.LAUNCHES = PS.LAUNCHES = 0
     FA.LAUNCHES = dict.fromkeys(FA.LAUNCHES, 0)
 
 
@@ -168,7 +178,7 @@ def phase_build():
     for name in KERNELS:
         for line in _build.build_log(name).splitlines():
             kernel = re.search(
-                r"((?:grouped|pq)_scan_kernel|flash_(?:bf16|f32)_kernel)"
+                r"((?:grouped|pq|probe)_scan_kernel|flash_(?:bf16|f32)_kernel)"
                 r"I(.*?)EEv", line)
             if kernel and "Function properties" in line:
                 # the kernel's template arguments: store type, mode
@@ -709,7 +719,92 @@ def phase_main():
     if launches != n_grouped or min(per_mode.values()) == 0:
         fail(f"the grouped searches did not all go through the kernel "
              f"({launches} launches, {n_grouped} grouped searches)")
-    return index, qb, chosen, per_mode, x
+    return index, qb, chosen, per_mode, x, gt, exact
+
+
+def phase_probe_route(index, qb, chosen, gt, exact):
+    """IVFFlat's probe route (``ivf_kernel="probe"``) on the main path's
+    index: recall over NPROBES, QPS beside the grouped route in turns,
+    launches, one profiled search."""
+    import torch
+    import neurondb_tpu_torch as nt
+    from neurondb_tpu_torch.ml.metrics import recall_at_k
+    from neurondb_tpu_torch.ops.kernels import ivf_scan as PS
+    from neurondb_tpu_torch.ops.kernels import ivf_scan_grouped as G
+
+    # the grouped exact mode's ids: the two routes meet only through recall
+    _, g_exact = index.search(qb[:NQ], k=K, nprobe=chosen, select="exact")
+    n = {"probe": 0, "grouped": 0}          # searches per route
+    crossed = {"probe": 0, "grouped": 0}    # the other kernel's launches
+
+    def search(route, qs, nprobe):
+        nt.configure(ivf_kernel=route)
+        other = G if route == "probe" else PS
+        before = other.LAUNCHES
+        out = index.search(qs, k=K, nprobe=nprobe)
+        crossed[route] += other.LAUNCHES - before
+        n[route] += 1
+        return out
+
+    qps = {}
+    try:
+        _zero_launches()
+        recalls = {}
+        for nprobe in NPROBES:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, ids = search("probe", qb, nprobe)
+            wall = time.perf_counter() - t0
+            recalls[nprobe] = (recall_at_k(ids[:NQ], gt),
+                               recall_at_k(ids[:NQ], exact),
+                               recall_at_k(ids[:NQ], g_exact)
+                               if nprobe == chosen else None)
+            log(f"[probe_route] nprobe {nprobe:>2}: recall@10 "
+                f"{recalls[nprobe][0]:.4f} (vs exact "
+                f"{recalls[nprobe][1]:.4f}), batch {BATCH} in "
+                f"{wall * 1e3:.1f} ms")
+        # the routes in turns (one rep each, the order reversed every
+        # round; round 0 warms up), grouped with its default selection
+        for batch in (BATCH, 1024):
+            qs = qb[:batch]
+            for rnd in range(4):
+                routes = ("probe", "grouped") if rnd % 2 == 0 else \
+                    ("grouped", "probe")
+                for route in routes:
+                    v = _rep(lambda: search(route, qs, chosen), batch)
+                    if rnd:
+                        qps.setdefault((route, batch), []).append(v)
+        _profile(f"probe route profile nprobe {chosen} batch {BATCH}",
+                 lambda: search("probe", qb, chosen))
+        launches = PS.LAUNCHES
+        g_launches = G.LAUNCHES
+    finally:
+        nt.get_config().reset("ivf_kernel")
+    r_gt, r_exact, agree = recalls[chosen]
+    for batch in (BATCH, 1024):
+        p, g = qps[("probe", batch)], qps[("grouped", batch)]
+        log(f"[probe_route] nprobe {chosen}, batch {batch}: QPS probe route "
+            f"median {np.median(p):.0f} of {[round(v) for v in p]}, grouped "
+            f"route ({nt.get_config().ivf_select}) median {np.median(g):.0f} "
+            f"of {[round(v) for v in g]} (f32 queries, 4 batches/rep, "
+            f"routes in turns)")
+    log(f"[probe_route] nprobe {chosen}: recall@10 {r_gt:.4f} (bar "
+        f"{RECALL_BAR}), vs exact {r_exact:.4f}, vs the grouped exact mode "
+        f"{agree:.4f} (bar {ROUTE_AGREE_BAR}); probe-kernel launches "
+        f"{launches} for {n['probe']} probe searches (grouped launches "
+        f"during them {crossed['probe']}); grouped launches {g_launches} for "
+        f"{n['grouped']} grouped searches (probe launches during them "
+        f"{crossed['grouped']})")
+    if launches != n["probe"] or crossed["probe"] or \
+            g_launches != n["grouped"] or crossed["grouped"]:
+        fail("the probe searches did not all go through the probe kernel "
+             "alone, or the grouped searches through the grouped kernel")
+    if r_gt < RECALL_BAR:
+        fail(f"probe route recall@10 {r_gt} < {RECALL_BAR} at nprobe {chosen}")
+    if agree < ROUTE_AGREE_BAR:
+        fail(f"probe route ids agree with the grouped exact mode's on "
+             f"{agree} < {ROUTE_AGREE_BAR} of recall@10")
+    return launches
 
 
 def phase_save_load(index, qb, nprobe):
@@ -1013,6 +1108,99 @@ def phase_flash_kernel():
     return stats
 
 
+def phase_probe_kernel():
+    import torch
+    from neurondb_tpu_torch.ops.kernels import ivf_scan as PS
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    vecs, offsets, counts = _layout(rng, PROBE_LENS, DIM, torch.bfloat16, dev)
+    nl = len(PROBE_LENS)
+    max_segs = PS.segments_for(max(PROBE_LENS))
+    err_max = 0.0
+    n_cases = 0
+    for k, nprobe in PROBE_CASES:
+        for metric in ("sqeuclidean", "ip"):
+            q = torch.randn((PROBE_B, DIM), device=dev)
+            lists = _probes(rng, PROBE_B, nprobe, nprobe, nl, dev).long()
+            poff, pcnt = offsets[lists], counts[lists]
+            kp = PS.kp_for(k)
+            kw = dict(max_segs=max_segs, metric=metric)
+            kd, ki = PS.probe_scan(q, vecs, poff, pcnt, kp=kp, **kw)
+            pd, pi = PS.probe_scan_plain(q, vecs, poff, pcnt, kp=kp + 1, **kw)
+            torch.cuda.synchronize()
+            label = f"probe k={k} nprobe={nprobe} {metric}"
+            err_max = max(err_max, _compare(kd, ki, pd, pi, label))
+            # the merged top-k: at most kp candidates from one list, and
+            # (NEG_FILL, -1) past nprobe * kp
+            vd, vi = PS.ivf_probe_scan(q, None, vecs, poff, pcnt, k=k, **kw)
+            wd, wi = PS.merge_probes(pd[..., :kp].contiguous(),
+                                     pi[..., :kp].contiguous(), k=k)
+            want = pcnt.long().clamp(max=kp).sum(1).clamp(max=k)
+            torch.cuda.synchronize()
+            if vd.shape != (PROBE_B, k) or not torch.equal(vi < 0, wi < 0) \
+                    or not torch.allclose(vd, wd, rtol=RTOL, atol=ATOL):
+                fail(f"{label}: the merged top-k differs from the plain "
+                     f"version's")
+            if not torch.equal((vi >= 0).sum(1), want):
+                fail(f"{label}: filled columns are not min(k, sum of "
+                     f"min(cnt, kp))")
+            n_cases += 1
+    q = torch.randn((PROBE_B, DIM), device=dev)
+    poff = offsets[_probes(rng, PROBE_B, 3, 3, nl, dev).long()]
+    kd, ki = PS.ivf_probe_scan(q, None, vecs, poff, torch.zeros_like(poff),
+                               k=10, max_segs=max_segs)
+    torch.cuda.synchronize()
+    if not (bool((ki == -1).all()) and bool((kd == PS.NEG_FILL).all())):
+        fail("probe: an all-empty probe set must give (NEG_FILL, -1) only")
+    n_cases += 1
+    log(f"[probe] {n_cases} cases match the plain version (lists "
+        f"{list(PROBE_LENS)}, bf16 store, B {PROBE_B}, (k, nprobe) in "
+        f"{list(PROBE_CASES)}, sqeuclidean and ip, an all-empty probe set; "
+        f"rtol {RTOL}, atol {ATOL}; merged top-k with the per-probe cap); "
+        f"max |kernel - plain| {err_max:.3e}")
+
+    # the flat kernel's headline shapes: 1M bf16 rows in 1024 lists,
+    # 16,384 queries, nprobe 8, k 10
+    lens = rng.multinomial(N_ROWS, np.full(NLISTS, 1.0 / NLISTS))
+    vecs, offsets, counts = _layout(rng, lens, DIM, torch.bfloat16, dev)
+    q = torch.randn((BATCH, DIM), device=dev)
+    probes = _probes(rng, BATCH, 8, 8, NLISTS, dev)
+    poff, pcnt = offsets[probes.long()], counts[probes.long()]
+    kp = PS.kp_for(K)
+    max_segs = PS.segments_for(int(lens.max()))
+    tuples, rows, uniq = _probe_work(probes, counts, NLISTS)
+    # bytes: the distinct probed rows (bf16), the f32 queries and the
+    # probes' offsets and counts read once, the partials written once;
+    # operations: each tuple's f32 products and each distinct row's |x|^2
+    nbytes = uniq * DIM * 2 + BATCH * DIM * 4 + tuples * 8 + tuples * kp * 8
+    flops = 2.0 * rows * DIM + 2.0 * uniq * DIM
+    bound_ms, bound_by = _bound(nbytes, flops, "f32")
+    kw = dict(kp=kp, max_segs=max_segs)
+    kd, ki = PS.probe_scan(q, vecs, poff, pcnt, **kw)
+    pd, pi = PS.probe_scan_plain(q, vecs, poff, pcnt, kp=kp + 1,
+                                 max_segs=max_segs)
+    torch.cuda.synchronize()
+    err = _compare(kd, ki, pd, pi, "probe headline")
+    del kd, ki, pd, pi
+    ms = _cuda_ms(lambda: PS.probe_scan(q, vecs, poff, pcnt, **kw), 10)
+    plain_ms = _cuda_ms(lambda: PS.probe_scan_plain(q, vecs, poff, pcnt,
+                                                    **kw), 2)
+    log(f"[probe] headline: {tuples} tuples (B {BATCH} x nprobe 8), "
+        f"{rows} rows scanned, {uniq} distinct, max_segs {max_segs}, kp "
+        f"{kp}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{bound_ms:.3f} ms ({bound_by}; {nbytes / 1e9:.3f} GB, "
+        f"{flops / 1e9:.1f} GFLOP at the f32 peak); rows read by the "
+        f"kernel {rows * DIM * 2 / 1e9:.1f} GB "
+        f"({rows * DIM * 2 / ms / 1e9:.2f} TB/s)")
+    log("[probe] no single PyTorch call computes a per-(query, probe) list "
+        "scan with its top-k; library_ms is null")
+    del vecs, q
+    torch.cuda.empty_cache()
+    return {"exact": {"max_abs_err": max(err_max, err), "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "library_ms": None}}
+
+
 def _rerank_vocab():
     """The synthetic WordPiece vocab of scripts/bench_rerank.py:39-47."""
     return (["[PAD]", "[UNK]", "[CLS]", "[SEP]"] + [f"w{i}" for i in range(2000)]
@@ -1233,13 +1421,17 @@ def main(argv):
     flat_stats = phase_kernel()
     pq_stats = phase_pq_kernel()
     flash_stats = phase_flash_kernel()
+    probe_stats = phase_probe_kernel()
     flat_launches = {m: None for m in MODES}
     pq_launches = {"exact": None, "packed": None}
     flash_launches = {"bf16": None, "f32": None}
+    probe_launches = {"exact": None}
     if not kernels_only:
-        index, qb, chosen, flat_launches, x = phase_main()
+        index, qb, chosen, flat_launches, x, gt, exact = phase_main()
         _profile(f"profile nprobe {chosen} batch {BATCH}",
                  lambda: index.search(qb, k=K, nprobe=chosen))
+        probe_launches = {"exact": phase_probe_route(index, qb, chosen, gt,
+                                                     exact)}
         phase_save_load(index, qb, chosen)
         del index
         torch.cuda.empty_cache()
@@ -1250,7 +1442,8 @@ def main(argv):
     for name, stats, launches in (
             ("ivf_grouped_scan", flat_stats, flat_launches),
             ("ivfpq_grouped_scan", pq_stats, pq_launches),
-            ("flash_attention", flash_stats, flash_launches)):
+            ("flash_attention", flash_stats, flash_launches),
+            ("ivf_probe_scan", probe_stats, probe_launches)):
         source, replaces = SOURCES[name]
         for mode, s in stats.items():
             kernels.append({"name": name, "mode": mode, "route": "cuda",

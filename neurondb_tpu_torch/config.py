@@ -1,9 +1,9 @@
 """Configuration — the same knobs as ``neurondb_tpu.config.NDBConfig``.
 
 Same fields, the same dotted-name get/set/reset and ``configure``, plus
-one ``device`` field. Environment overrides are read under the prefix
-``NEURONDB_TORCH_<UPPER_SNAKE>`` so the two packages can be configured
-apart in one process.
+a ``device`` and an ``ivf_kernel`` field. Environment overrides are read
+under the prefix ``NEURONDB_TORCH_<UPPER_SNAKE>`` so the two packages can
+be configured apart in one process.
 
 Knobs that name a TPU mechanism keep their field for parity but are
 served as follows in this package:
@@ -15,6 +15,12 @@ served as follows in this package:
   selection modes. The IVF-PQ search reads it too (packed keys when it
   is ``"packed"``, exact for the other two) where the JAX package reads
   the env var ``NEURONDB_TPU_IVF_SELECT``;
+- ``ivf_kernel`` (a field of this package only): ``"grouped"`` (the
+  default, as in the JAX package) or ``"probe"``, the IVFFlat route
+  below the exact point; the counterpart of the JAX package's env var
+  ``NEURONDB_TPU_IVF_KERNEL``, read here as ``NEURONDB_TORCH_IVF_KERNEL``.
+  An unknown name raises at search time, where the JAX package silently
+  takes its round-1 route;
 - ``store_dtype="auto"``: bf16 on CUDA, f32 elsewhere (the JAX package's
   "bf16 on TPU").
 """
@@ -51,6 +57,7 @@ class NDBConfig:
     ivf_qt: int = 0                       # grouped-scan queries/tile (0=auto)
     ivf_coarse_rt: float = 0.99           # served exactly (see module doc)
     ivf_select: str = "packed"            # packed | blockmin | exact
+    ivf_kernel: str = "grouped"           # grouped | probe (see module doc)
     bm25_scorer: str = "tiled"
 
     # ---- compute mode ----

@@ -4,14 +4,19 @@ Counterpart of ``neurondb_tpu/index/ivf.py``. The build trains k-means on
 a sample, assigns every row and packs an aligned CSR: each list starts on
 a ``LIST_ALIGN``-row boundary and the store ends in a ``PAD_SEG``-row tail,
 the same layout as the JAX package, so a state carried across
-(``from_state``) yields the same lists. A search takes one of two routes
+(``from_state``) yields the same lists. A search takes one of three routes
 on every device:
 
-- ``_ivf_search_grouped``: centroid GEMM, top-nprobe, ``group_probes``,
-  the grouped scan (the CUDA kernel on a CUDA tensor, its plain torch
-  version on a CPU tensor), ``merge_partials`` and ``_ivf_post``;
+- ``_ivf_search_grouped`` (the default, ``config.ivf_kernel="grouped"``):
+  centroid GEMM, top-nprobe, ``group_probes``, the grouped scan (the CUDA
+  kernel on a CUDA tensor, its plain torch version on a CPU tensor),
+  ``merge_partials`` and ``_ivf_post``;
+- ``_ivf_search_probe`` (``config.ivf_kernel="probe"``, the JAX package's
+  round-1 route): ``_ivf_coarse`` (centroid GEMM, top-nprobe, the probes'
+  offsets and counts), the per-(query, probe) scan ``ivf_probe_scan``
+  (``csrc/ivf_probe_scan.cu`` on a CUDA tensor) and ``_ivf_post``;
 - ``_ivf_search_exact``: the chunked exact scan, taken where the padded
-  nprobe reaches nlists.
+  nprobe reaches nlists, whichever kernel is configured.
 
 Deliberate divergences from the JAX package:
 - probe selection (``coarse_rt``) and the exact route's
@@ -24,7 +29,14 @@ Deliberate divergences from the JAX package:
 - the store is bf16 on CUDA (``store_dtype="auto"``), f32 elsewhere;
 - the TPU limits on the route (the ``8 * t_max`` SMEM guard and the
   ``D % 128`` gate) are dropped; the kernel's own bound is its shared
-  memory, which the scan checks for each call.
+  memory, which the scan checks for each call;
+- ``ivf_kernel`` (the JAX package's env var ``NEURONDB_TPU_IVF_KERNEL``)
+  takes ``"grouped"`` or ``"probe"``; an unknown name raises where the
+  JAX package silently takes the round-1 route;
+- the probe route scans exactly ``nprobe`` probe columns: the JAX
+  package's padding to ``max(npad, 16)`` empty columns exists only to
+  share one Mosaic compile. ``select`` is validated and has no effect
+  there, as in the JAX package (its selection is exact).
 """
 
 from __future__ import annotations
@@ -40,10 +52,13 @@ from neurondb_tpu_torch.index.base import BaseIndex, as_batch
 from neurondb_tpu_torch.ml.kmeans import kmeans_fit, kmeans_predict
 from neurondb_tpu_torch.ops import distance as D
 from neurondb_tpu_torch.ops import topk as TK
+from neurondb_tpu_torch.ops.kernels import ivf_scan as P
 from neurondb_tpu_torch.ops.kernels import ivf_scan_grouped as G
 
 PAD_SEG = 1024    # store tail padding, as in the JAX package's layout
+SEGMENT = P.SEG   # the probe route's rows per segment (``max_segs`` unit)
 SELECT_MODES = ("packed", "blockmin", "exact")
+IVF_KERNELS = ("grouped", "probe")
 
 
 def _ivf_post(vals: torch.Tensor, rows: torch.Tensor, row_ids: torch.Tensor,
@@ -100,6 +115,14 @@ def select_bits(select: str, max_list: int, *, max_bits: int = 14
     return pb, pb > 0 and select == "blockmin"
 
 
+def _nearest_lists(q, centroids, n: int, *, metric: str) -> torch.Tensor:
+    """Coarse stage: each query's n nearest centroids [B, n] (exact
+    top-n; sq-L2 for l2 and cosine, ip for ip)."""
+    cd = D.pairwise_distance(q, centroids,
+                             "sqeuclidean" if metric != "ip" else "ip")
+    return TK.topk_smallest(cd, n)[1]
+
+
 def _ivf_search_grouped(q, centroids, vecs, row_ids, offsets, counts,
                         nprobe: int, *, k: int, metric: str, nprobe_pad: int,
                         qt: int = 0, pos_bits: int = 0,
@@ -109,9 +132,7 @@ def _ivf_search_grouped(q, centroids, vecs, row_ids, offsets, counts,
     at or past ``nprobe`` to the sentinel list ``nlists``."""
     npad = nprobe_pad
     nlists = counts.shape[0]
-    cd = D.pairwise_distance(q, centroids,
-                             "sqeuclidean" if metric != "ip" else "ip")
-    _, probes = TK.topk_smallest(cd, npad)
+    probes = _nearest_lists(q, centroids, npad, metric=metric)
     col = torch.arange(npad, device=q.device)[None, :]
     probes = torch.where(col < nprobe, probes, nlists).to(torch.int32)
     B = q.shape[0]
@@ -126,6 +147,26 @@ def _ivf_search_grouped(q, centroids, vecs, row_ids, offsets, counts,
         metric="ip" if metric == "ip" else "sqeuclidean",
         pos_bits=pos_bits, block_min=block_min)
     vals, rows = G.merge_partials(out_d, out_i, pos.reshape(B, npad), k=k)
+    return _ivf_post(vals, rows, row_ids, metric=metric)
+
+
+def _ivf_coarse(q, centroids, offsets, counts, *, nprobe: int, metric: str
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Coarse stage of the probe route: the nprobe nearest lists, then
+    each probe's list offset and count [B, nprobe]."""
+    probes = _nearest_lists(q, centroids, nprobe, metric=metric)
+    return offsets[probes], counts[probes]
+
+
+def _ivf_search_probe(q, centroids, vecs, row_ids, offsets, counts, *,
+                      k: int, nprobe: int, metric: str, max_segs: int):
+    """Round-1 route: coarse stage -> per-(query, probe) list scan with
+    its cross-probe merge -> id map."""
+    poff, pcnt = _ivf_coarse(q, centroids, offsets, counts, nprobe=nprobe,
+                             metric=metric)
+    vals, rows = P.ivf_probe_scan(
+        q, None, vecs, poff, pcnt, k=k, max_segs=max_segs,
+        metric="ip" if metric == "ip" else "sqeuclidean")
     return _ivf_post(vals, rows, row_ids, metric=metric)
 
 
@@ -313,11 +354,16 @@ class IVFFlatIndex(BaseIndex):
         scan's top-k extraction (``select_bits``): ``"packed"`` rounds
         distances by <= 2**(pos_bits-24) relative and may swap near-ties
         at the k boundary; ``"blockmin"`` keeps at most one candidate per
-        (query, 1024-row segment, class pos % 128); ``"exact"``."""
+        (query, 1024-row segment, class pos % 128); ``"exact"``. The route
+        below the exact point is ``config.ivf_kernel``'s; on the probe
+        route ``select`` is validated and has no effect."""
         cfg = get_config()
         pos_bits, block_min = select_bits(
             select if select is not None else cfg.ivf_select, self.max_list)
-        nprobe = max(1, min(int(nprobe if nprobe is not None
+        if cfg.ivf_kernel not in IVF_KERNELS:
+            raise ValueError(f"unknown ivf_kernel {cfg.ivf_kernel!r}; "
+                             f"known: {IVF_KERNELS}")
+        nprobe =max(1, min(int(nprobe if nprobe is not None
                                 else cfg.ivf_nprobe), self.nlists))
         q, single = as_batch(queries, device=self.device)
         if self._spherical:
@@ -337,6 +383,11 @@ class IVFFlatIndex(BaseIndex):
                 q, self._vecs, self._sqnorms, self._ext_ids, self._offsets,
                 self._counts, k=kk, metric=self.metric, chunk=chunk,
                 recall_target=recall_target)
+        elif cfg.ivf_kernel == "probe":
+            vals, ids = _ivf_search_probe(
+                q, self.centroids, self._vecs, self._ext_ids, self._offsets,
+                self._counts, k=kk, nprobe=nprobe, metric=self.metric,
+                max_segs=P.segments_for(self.max_list))
         else:
             vals, ids = _ivf_search_grouped(
                 q, self.centroids, self._vecs, self._ext_ids, self._offsets,

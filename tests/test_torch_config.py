@@ -20,12 +20,14 @@ def fresh_config(monkeypatch):
 def test_same_fields_plus_device():
     jf = {f.name for f in dataclasses.fields(JC.NDBConfig)}
     tf = {f.name for f in dataclasses.fields(TC.NDBConfig)}
-    assert tf == jf | {"device"}
+    # ivf_kernel is the JAX package's env var NEURONDB_TPU_IVF_KERNEL
+    assert tf == jf | {"device", "ivf_kernel"}
     # every default mirrors the JAX value, packed selection included
     differ = {n for n in jf
               if getattr(TC.NDBConfig(), n) != getattr(JC.NDBConfig(), n)}
     assert differ == set()
     assert TC.NDBConfig().ivf_select == "packed"
+    assert TC.NDBConfig().ivf_kernel == "grouped"
 
 
 def test_show_set_reset_configure(fresh_config):
@@ -47,6 +49,19 @@ def test_env_override_uses_torch_prefix(fresh_config, monkeypatch):
     cfg = TC.get_config()
     assert cfg.ivf_nprobe == 7 and cfg.metrics_enable is False
     assert cfg.ivf_nlists == 100
+
+
+def test_ivf_kernel_env_override(fresh_config, monkeypatch):
+    """NEURONDB_TORCH_IVF_KERNEL sets the route; the JAX package's
+    NEURONDB_TPU_IVF_KERNEL is not read."""
+    monkeypatch.setenv("NEURONDB_TPU_IVF_KERNEL", "probe")
+    assert TC.get_config().ivf_kernel == "grouped"
+    TC.set_config(None)
+    monkeypatch.setenv("NEURONDB_TORCH_IVF_KERNEL", "probe")
+    cfg = TC.get_config()
+    assert cfg.ivf_kernel == "probe"
+    cfg.reset("ivf_kernel")
+    assert cfg.ivf_kernel == "grouped"
 
 
 def test_device_and_store_dtype_resolution(fresh_config):

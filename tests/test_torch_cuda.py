@@ -17,6 +17,7 @@ from neurondb_tpu_torch.index.ivfpq import IVFPQIndex
 from neurondb_tpu_torch.ml import bert as TB
 from neurondb_tpu_torch.ml.params import tree_map
 from neurondb_tpu_torch.ops.kernels import flash_attention as FA
+from neurondb_tpu_torch.ops.kernels import ivf_scan as PS
 from neurondb_tpu_torch.ops.kernels import ivf_scan_grouped as G
 from neurondb_tpu_torch.ops.kernels import ivfpq_scan as PQS
 
@@ -286,3 +287,90 @@ def test_tiny_bert_on_card_matches_cpu(dev):
     for key in ("score", "pooled", "mean_pooled"):
         torch.testing.assert_close(card[key].cpu(), cpu[key], rtol=5e-3,
                                    atol=5e-3)
+
+
+PROBE_LENS = [0, 3, 31, 511, 512, 513, 1024, 1025, 2500]
+
+
+def _probe_inputs(rng, dev, b, nprobe, dim):
+    vecs, offsets, counts = _layout(rng, PROBE_LENS, dim)
+    lists = np.argsort(rng.random((b, len(PROBE_LENS))), axis=1)[:, :nprobe]
+    poff = torch.from_numpy(offsets[lists]).to(dev)
+    pcnt = torch.from_numpy(counts[lists]).to(dev)
+    q = torch.from_numpy(rng.standard_normal((b, dim)).astype(np.float32))
+    return vecs, q.to(dev), poff, pcnt
+
+
+@pytest.mark.parametrize("store", ["bfloat16", "float32"])
+@pytest.mark.parametrize("metric", ["sqeuclidean", "ip"])
+@pytest.mark.parametrize("k,nprobe,dim", [(1, 4, 128), (10, 6, 128),
+                                          (100, 3, 128), (512, 5, 128),
+                                          (1000, 1, 128), (1000, 3, 128),
+                                          (10, 4, 100)])
+def test_probe_kernel_matches_plain(dev, store, metric, k, nprobe, dim):
+    """The probe kernel against probe_scan_plain on ragged lists, B = 37
+    (no multiple of 16); dim 100 takes the scalar loads. Partials allclose
+    and rows equal away from near-ties; the merged top-k too, with the
+    per-probe cap and the padding past nprobe * kp."""
+    rng = np.random.default_rng(k + nprobe + dim)
+    vecs, q, poff, pcnt = _probe_inputs(rng, dev, 37, nprobe, dim)
+    vd = torch.from_numpy(vecs).to(dev, getattr(torch, store))
+    kp = PS.kp_for(k)
+    before = PS.LAUNCHES
+    kd, ki = PS.probe_scan(q, vd, poff, pcnt, kp=kp, max_segs=8, metric=metric)
+    pd, pi = PS.probe_scan_plain(q, vd, poff, pcnt, kp=kp + 1, max_segs=8,
+                                 metric=metric)
+    torch.cuda.synchronize()
+    assert PS.LAUNCHES == before + 1
+    torch.testing.assert_close(kd, pd[..., :kp], rtol=RTOL, atol=ATOL)
+    close = (pd[..., 1:] - pd[..., :-1]).abs() <= \
+        1e-5 * pd[..., 1:].abs().clamp(min=1)
+    tie = torch.zeros_like(pi, dtype=torch.bool)
+    tie[..., 1:] |= close
+    tie[..., :-1] |= close
+    ok = (ki == pi[..., :kp]) | tie[..., :kp]
+    assert bool(ok.all()), ok.logical_not().nonzero()[:3].tolist()
+    md, mi = PS.merge_probes(kd, ki, k=k)
+    wd, wi = PS.merge_probes(pd[..., :kp].contiguous(),
+                             pi[..., :kp].contiguous(), k=k)
+    assert md.shape == (37, k)
+    torch.testing.assert_close(md, wd, rtol=RTOL, atol=ATOL)
+    assert torch.equal(mi < 0, wi < 0)
+    if k > nprobe * kp:
+        assert bool((mi[:, nprobe * kp:] == -1).all())
+
+
+def test_probe_kernel_empty_probes(dev):
+    rng = np.random.default_rng(5)
+    vecs, q, poff, _ = _probe_inputs(rng, dev, 20, 3, 128)
+    vd = torch.from_numpy(vecs).to(dev, torch.bfloat16)
+    d, i = PS.ivf_probe_scan(q, None, vd, poff, torch.zeros_like(poff), k=10,
+                             max_segs=8)
+    torch.cuda.synchronize()
+    assert bool((i == -1).all()) and bool((d == PS.NEG_FILL).all())
+
+
+def test_probe_route_on_card_matches_cpu(dev):
+    """One index state on the card (probe kernel, f32 store) and on the
+    CPU (plain scan), ivf_kernel = "probe": the same ids; the card's
+    search launches the probe kernel once and the grouped kernel never."""
+    rng = np.random.default_rng(3)
+    centers = rng.standard_normal((16, 64)).astype(np.float32) * 2
+    x = (centers[rng.integers(0, 16, 4000)]
+         + rng.standard_normal((4000, 64))).astype(np.float32)
+    q = x[:200] + 0.3 * rng.standard_normal((200, 64)).astype(np.float32)
+    cpu = IVFFlatIndex(x, nlists=32, seed=0, device="cpu")
+    arrays, meta = cpu._state()
+    meta = dict(meta, metric="l2", dim=64)
+    configure(store_dtype="float32", ivf_kernel="probe")
+    try:
+        gpu = IVFFlatIndex.from_state(arrays, meta, device="cuda")
+        before, g_before = PS.LAUNCHES, G.LAUNCHES
+        gd, gi = gpu.search(q, k=10, nprobe=4)
+        cd, ci = cpu.search(q, k=10, nprobe=4)
+        assert PS.LAUNCHES == before + 1 and G.LAUNCHES == g_before
+    finally:
+        get_config().reset("store_dtype")
+        get_config().reset("ivf_kernel")
+    assert float((gi == ci).mean()) >= 0.99
+    np.testing.assert_allclose(gd, cd, rtol=RTOL, atol=ATOL)

@@ -12,6 +12,7 @@ import torch
 
 from neurondb_tpu_torch.ops.kernels import _build
 from neurondb_tpu_torch.ops.kernels import flash_attention as FA
+from neurondb_tpu_torch.ops.kernels import ivf_scan as PS
 from neurondb_tpu_torch.ops.kernels import ivf_scan_grouped as G
 from neurondb_tpu_torch.ops.kernels import ivfpq_scan as PQS
 
@@ -233,3 +234,71 @@ def test_cpu_tensors_never_launch_flash():
     emb = TextEmbedder(dim=64, max_len=16, use_flash=True, device="cpu")
     assert emb(["text"]).shape == (1, 64) and scores.shape == (3,)
     assert FA.LAUNCHES == before == {"bf16": 0, "f32": 0}
+
+
+def test_probe_scan_module_imports_without_jax():
+    """The probe route's modules load where jax and the JAX package
+    cannot be imported, and importing them loads neither."""
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'neurondb_tpu'):\n"
+        "            raise ImportError(name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "from neurondb_tpu_torch.ops.kernels import ivf_scan\n"
+        "from neurondb_tpu_torch.index.ivf import _ivf_search_probe\n"
+        "print(ivf_scan.SEG, sorted(m for m in sys.modules if "
+        "m.split('.')[0] in ('jax', 'neurondb_tpu')))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "512 []"
+
+
+def test_probe_wrapper_raises_instead_of_falling_back(no_nvcc):
+    """The CUDA branch builds csrc/ivf_probe_scan.cu or raises; it never
+    runs the plain version."""
+    before = PS.LAUNCHES
+    q = torch.zeros((4, 8))
+    vecs = torch.zeros((1024, 8))
+    poff = torch.zeros((4, 2), dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        PS._probe_scan_cuda(q, vecs, poff, poff + 5, kp=8, max_segs=1,
+                            metric="sqeuclidean")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build(["ivf_probe_scan"])
+    assert PS.LAUNCHES == before
+
+
+def test_probe_wrapper_checks_its_inputs():
+    q = torch.zeros((4, 8))
+    vecs = torch.zeros((1024, 8))
+    poff = torch.zeros((4, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="kp"):
+        PS._probe_scan_cuda(q, vecs, poff, poff, kp=513, max_segs=1,
+                            metric="ip")
+    with pytest.raises(ValueError, match="int32"):
+        PS._probe_scan_cuda(q, vecs, poff.long(), poff, kp=8, max_segs=1,
+                            metric="ip")
+    with pytest.raises(ValueError, match="f32"):
+        PS._probe_scan_cuda(q.double(), vecs, poff, poff, kp=8, max_segs=1,
+                            metric="ip")
+    meta = torch.empty((1024, 8), device="meta")
+    with pytest.raises(ValueError, match="several devices"):
+        PS.probe_scan(q, meta, poff, poff, kp=8, max_segs=1)
+    with pytest.raises(ValueError, match="metric"):
+        PS.probe_scan(q, vecs, poff, poff, kp=8, max_segs=1, metric="l2")
+
+
+def test_cpu_tensors_never_launch_probe_scan():
+    rng = np.random.default_rng(0)
+    vecs = torch.as_tensor(rng.standard_normal((2048, 16)).astype(np.float32))
+    q = torch.as_tensor(rng.standard_normal((20, 16)).astype(np.float32))
+    poff = torch.tensor([[0, 512, 1024]] * 20, dtype=torch.int32)
+    pcnt = torch.tensor([[500, 0, 1000]] * 20, dtype=torch.int32)
+    before = PS.LAUNCHES
+    d, rows = PS.ivf_probe_scan(q, None, vecs, poff, pcnt, k=5, max_segs=2)
+    assert PS.LAUNCHES == before == 0
+    assert d.device.type == "cpu" and rows.shape == (20, 5)
