@@ -51,18 +51,22 @@ each print their own lines:
    n_sub = 16 index (no OPQ) at nprobe 4, rerank 0 and 8;
 9. flash kernel against plain: ``flash_attention``'s CUDA kernel against
    ``flash_attention_plain`` at the kernel's KV tile, for Dh in {32, 64,
-   128}, S in {1, 100, 128, 300, 512, 513, 1900}, ragged masks, a fully
-   masked row and no mask, bf16 and f32 products; then both modes timed
-   at (64, 12, 512, 64) with a ragged mask, (1, 8, 8192, 128) and
-   (1, 2, 8192, 64) beside the bound, the plain version and
-   ``scaled_dot_product_attention`` on the same inputs (bf16 casts made
-   inside the timed call for the bf16 mode);
+   128}, S in {1, 100, 128, 300, 512, 513, 1900} (bf16 also at the
+   128-row query tile's edges 127, 129, 257, 640), ragged masks, a fully
+   masked row and no mask, bf16 and f32 products; the bf16
+   instantiations' ptxas registers, spills and resident blocks per SM;
+   then both modes timed at (64, 12, 512, 64) with a ragged mask, (1, 8,
+   8192, 128) and (1, 2, 8192, 64) beside the bound, the plain version
+   and ``scaled_dot_product_attention`` on the same inputs (the bf16 mode
+   and SDPA on bf16 casts made inside the timed call in alternating
+   turns, medians and their ratio);
 10. cross-encoder main path: a BERT-base export (random weights from a
    numpy seed) in a temp dir; ``rerank_cross_encoder`` over 256 docs of
    512 tokens through ``PretrainedCrossEncoder(max_len=512, batch=64)``
    with the flash launches of that call counted per mode; docs/s
    pipelined, serial and encode-bound, the tokenizer's share; scores
-   against ``use_flash=False``; one call profiled; ``PretrainedEmbedder``
+   against ``use_flash=False``; one call profiled, with the flash
+   kernel's share of its device time; ``PretrainedEmbedder``
    self-retrieval through a cosine ``FlatIndex``; the default
    ``CrossEncoder()`` and ``TextEmbedder()`` through the kernel.
 
@@ -103,6 +107,9 @@ FLASH_TOL = {True: 2e-3, False: 1e-4}
 REF_TOL = {True: 5e-2, False: 2e-3}     # vs attention_reference (JAX tests)
 FLASH_SHAPES = ((64, 12, 512, 64, True), (1, 8, 8192, 128, False),
                 (1, 2, 8192, 64, False))  # (B, H, S, Dh, ragged mask)
+FLASH_S = (1, 100, 128, 300, 512, 513, 1900)       # the grid's sequence lengths
+FLASH_S_BF16 = FLASH_S + (127, 129, 257, 640)      # + the 128-row query tile's edges
+FLASH_TURNS, FLASH_REPS = 7, 10    # alternating turns of kernel and SDPA
 RR_DOCS, RR_BATCH, RR_LEN, RR_K = 256, 64, 512, 10
 BERT_BASE = dict(vocab=30522, hidden=768, layers=12, heads=12, ff=3072,
                  max_len=512)
@@ -151,13 +158,18 @@ def _zero_launches():
     FA.LAUNCHES = dict.fromkeys(FA.LAUNCHES, 0)
 
 
+def _smi():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
 def phase_device():
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is False)")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
+    smi = _smi()
     log(smi)
     # reference comparisons in full f32: no TF32 in matmuls or convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -307,6 +319,29 @@ def _cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _turns_ms(fns, reps, turns):
+    """Each of ``fns`` (name -> call) timed in alternating turns, the
+    order reversed every other turn (a, b, b, a, ...), each turn a
+    CUDA-event mean over ``reps`` calls; the median over turns by name."""
+    import torch
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    times = {name: [] for name in fns}
+    order = list(fns)
+    for turn in range(turns):
+        for name in order if turn % 2 == 0 else order[::-1]:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                fns[name]()
+            end.record()
+            torch.cuda.synchronize()
+            times[name].append(start.elapsed_time(end) / reps)
+    return {name: float(np.median(t)) for name, t in times.items()}
 
 
 def _bound(nbytes, flops, rate):
@@ -823,7 +858,8 @@ def phase_save_load(index, qb, nprobe):
 
 def _profile(tag, search):
     """One call under torch.profiler: device time by kernel, and the
-    share of the call's wall time the device was busy."""
+    share of the call's wall time the device was busy. Returns the busy
+    ms and the profiler's device events."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -844,6 +880,7 @@ def _profile(tag, search):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:14]:
         log(f"[{tag}] {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<3} "
             f"{e.key[:100]}")
+    return busy_ms, kernels
 
 
 def phase_ivfpq(x):
@@ -997,7 +1034,25 @@ def _flash_inputs(gen, B, H, S, dh, ragged, device):
     return q, k, v, mask
 
 
-def phase_flash_kernel():
+def _flash_ptxas(log):
+    """{(Dh, masked): (registers, spill store + load bytes)} of the bf16
+    instantiations, from ptxas's lines in a flash build's log."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"flash_bf16_kernelILi(\d+)ELb([01])E", line)
+            cur = (int(m.group(1)), m.group(2) == "1") if m else None
+            if cur:
+                out[cur] = [None, 0]
+        elif cur and "spill" in line:
+            out[cur][1] = sum(int(n) for n in
+                              re.findall(r"(\d+) bytes spill", line))
+        elif cur and "registers" in line:
+            out[cur][0] = int(re.search(r"Used (\d+) registers", line)[1])
+    return out
+
+
+def phase_flash_kernel(smi):
     import torch
     import torch.nn.functional as F
     from neurondb_tpu_torch.ops.kernels import flash_attention as FA
@@ -1006,13 +1061,23 @@ def phase_flash_kernel():
     if (lib.flash_attention_kv_tile(1), lib.flash_attention_kv_tile(0)) != \
             (FA.KV_TILE, FA.KV_TILE_F32):
         fail("flash kernel's KV tiles differ from the wrapper's")
+    from neurondb_tpu_torch.ops.kernels import _build
+    ptxas = _flash_ptxas(_build.build_log("flash_attention"))
+    for dh in (32, 64, 128):
+        for masked in (True, False):
+            regs, spill = ptxas.get((dh, masked), (None, None))
+            log(f"[flash] flash_bf16_kernel<Dh {dh}, "
+                f"{'mask' if masked else 'no mask'}>: {regs} registers, "
+                f"{spill} bytes spilled (ptxas), "
+                f"{lib.flash_attention_occupancy(dh, int(masked))} resident "
+                f"blocks per SM")
     gen = torch.Generator(device=dev).manual_seed(9)
     errs = {True: 0.0, False: 0.0}
     n_cases = 0
     for bf16 in (True, False):
         tile = FA.KV_TILE if bf16 else FA.KV_TILE_F32
         for dh in (32, 64, 128):
-            for S in (1, 100, 128, 300, 512, 513, 1900):
+            for S in FLASH_S_BF16 if bf16 else FLASH_S:
                 for masking in ("ragged", "full_row", "none"):
                     B, H = 3, 2
                     q, k, v, _ = _flash_inputs(gen, B, H, S, dh, False, dev)
@@ -1053,6 +1118,7 @@ def phase_flash_kernel():
         f"match attention_reference; max |kernel - plain| bf16 "
         f"{errs[True]:.3e}, f32 {errs[False]:.3e}")
 
+    log(f"[flash] timings on {smi}")
     stats = {}
     for B, H, S, dh, ragged in FLASH_SHAPES:
         q, k, v, mask = _flash_inputs(gen, B, H, S, dh, ragged, dev)
@@ -1063,14 +1129,6 @@ def phase_flash_kernel():
         # * Dh per (query, real key) pair of each head
         nbytes = 4 * q.numel() * 4 + (0 if mask is None else mask.numel() * 4)
         flops = 4.0 * H * S * keys * dh
-        # the library call for each mode: SDPA on the f32 inputs, and on
-        # bf16 casts of them made inside the timed call (the kernel's bf16
-        # mode reads the same f32 inputs and rounds them itself)
-        lib = {"f32": _cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=amask), 10),
-               "bf16": _cuda_ms(lambda: F.scaled_dot_product_attention(
-                   q.bfloat16(), k.bfloat16(), v.bfloat16(),
-                   attn_mask=amask), 10)}
         for bf16 in (True, False):
             tile = FA.KV_TILE if bf16 else FA.KV_TILE_F32
             got = FA.flash_attention(q, k, v, mask, bf16=bf16)
@@ -1083,26 +1141,43 @@ def phase_flash_kernel():
                 fail(f"flash {(B, H, S, dh)} bf16={bf16}: kernel and plain "
                      f"differ by {err}")
             del got, want
-            ms = _cuda_ms(lambda: FA.flash_attention(q, k, v, mask,
-                                                     bf16=bf16), 10)
+            mode = "bf16" if bf16 else "f32"
+
+            def kernel():
+                return FA.flash_attention(q, k, v, mask, bf16=bf16)
+
+            if bf16:
+                # the library call on bf16 casts of the same f32 inputs,
+                # made inside the timed call (the kernel reads the f32
+                # inputs and rounds them itself), timed in turns with the
+                # kernel so that a shift of the process moves both
+                t = _turns_ms({"kernel": kernel, "sdpa": lambda: (
+                    F.scaled_dot_product_attention(
+                        q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                        attn_mask=amask))}, FLASH_REPS, FLASH_TURNS)
+                ms, lib_ms = t["kernel"], t["sdpa"]
+                how = (f"medians of {FLASH_TURNS} alternating turns of "
+                       f"{FLASH_REPS} calls; kernel / SDPA {ms / lib_ms:.3f}")
+            else:
+                ms = _cuda_ms(kernel, FLASH_REPS)
+                lib_ms = _cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=amask), FLASH_REPS)
+                how = f"means of {FLASH_REPS} calls"
             plain_ms = _cuda_ms(lambda: FA.flash_attention_plain(
                 q, k, v, mask, bf16=bf16, kv_tile=tile), 2)
             rate = "bf16 tensor core" if bf16 else "f32"
             bound_ms, bound_by = _bound(nbytes, flops, rate)
-            mode = "bf16" if bf16 else "f32"
             log(f"[flash] {mode:4s} (B, H, S, Dh) = {(B, H, S, dh)}"
                 f"{', ragged mask' if ragged else ', no mask'}: kernel "
-                f"{ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
-                f"{plain_ms:.3f} ms, SDPA {mode} {lib[mode]:.3f} ms (the other "
-                f"mode's {lib['f32' if bf16 else 'bf16']:.3f} ms), bound "
+                f"{ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), SDPA {mode} "
+                f"{lib_ms:.3f} ms ({how}), plain {plain_ms:.3f} ms, bound "
                 f"{bound_ms:.3f} ms ({bound_by}; "
                 f"{nbytes / 1e9:.3f} GB, {flops / 1e9:.1f} GFLOP at the "
                 f"{rate} peak); max |kernel - plain| {err:.3e}")
             if (B, H, S, dh) == FLASH_SHAPES[0][:4]:
                 stats[mode] = {"max_abs_err": max(errs[bf16], err), "ms": ms,
                                "plain_ms": plain_ms, "bound_ms": bound_ms,
-                               "bound_by": bound_by,
-                               "library_ms": lib[mode]}
+                               "bound_by": bound_by, "library_ms": lib_ms}
         del q, k, v, mask
         torch.cuda.empty_cache()
     return stats
@@ -1374,7 +1449,13 @@ def phase_rerank():
     if not np.allclose(s_scores, full, rtol=1e-5, atol=1e-5):
         fail("serial (one-shot sub-batches) and pipelined scores differ")
 
-    _profile(f"rerank profile {RR_DOCS} docs", call)
+    busy_ms, events = _profile(f"rerank profile {RR_DOCS} docs", call)
+    flash = [e for e in events if "flash_bf16_kernel" in e.key]
+    flash_ms = sum(e.self_device_time_total for e in flash) / 1e3
+    n_flash = sum(e.count for e in flash)
+    log(f"[rerank] flash_bf16_kernel in the profiled call: {flash_ms:.3f} ms "
+        f"over {n_flash} launches ({flash_ms / max(n_flash, 1):.3f} ms each), "
+        f"share {flash_ms / busy_ms:.4f} of {busy_ms:.2f} ms busy")
     del ce, ids, types
     torch.cuda.empty_cache()
 
@@ -1416,11 +1497,11 @@ def phase_rerank():
 def main(argv):
     import torch
     kernels_only = "--kernels-only" in argv
-    phase_device()
+    smi = phase_device()
     phase_build()
     flat_stats = phase_kernel()
     pq_stats = phase_pq_kernel()
-    flash_stats = phase_flash_kernel()
+    flash_stats = phase_flash_kernel(smi)
     probe_stats = phase_probe_kernel()
     flat_launches = {m: None for m in MODES}
     pq_launches = {"exact": None, "packed": None}

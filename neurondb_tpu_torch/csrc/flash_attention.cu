@@ -22,31 +22,53 @@
 // every key is masked gets the mean of v over the S keys, as
 // `attention_reference` gives (the TPU kernel averages over its padded
 // length). Masked logits take -1e30, never -inf, so no row becomes NaN.
-// The output is f32, written through its own strides.
+// The output is f32, written through its own strides. Only the KV tile
+// fixes the numbers (p is rounded relative to each tile's running
+// maximum); the query tile, the warps and the staging do not.
 //
 // What bounds it on the card. At the cross-encoder's shape (B 64, H 12,
-// S 512, Dh 64) a call reads 0.30 GB of f32 q, k, v and writes 0.10 GB:
-// ~0.12 ms at 3.35 TB/s, against 51.5 GFLOP of products, ~0.05 ms at the
-// bf16 tensor-core peak. It is byte-bound there, and operation-bound at
-// long S (S 8192, Dh 128: 275 GFLOP, ~0.28 ms).
+// S 512, Dh 64, ragged mask) a call must read 0.30 GB of f32 q, k, v and
+// write 0.10 GB: 0.403 GB, 0.120 ms at 3.35 TB/s, against 51.5 GFLOP of
+// products, 0.052 ms at the 989 TFLOP/s bf16 tensor-core peak. It is
+// byte-bound there, and operation-bound at long S (S 8192, Dh 128: 275
+// GFLOP, 0.278 ms).
 //
-// Design (simple first):
-// - one block per (query tile, batch x head), a loop over KV tiles inside
-//   the block in place of the TPU's sequential grid axis; K and V tiles
-//   staged in shared memory, rounded to bf16 as they are stored (so no
-//   cast pass over q, k, v in device memory, and the strided views of
-//   the dense layers' outputs are read in place);
-// - bf16 mode: 4 warps x 16 query rows, mma.sync m16n8k16 (bf16 in, f32
-//   accumulate): S = Q K^T into registers, the row max and sum through
-//   quad shuffles, P repacked from the S accumulators straight into the
-//   A fragments of the PV product (no trip through shared memory), V's B
-//   fragments by ldmatrix.trans. Rows are padded by 8 bf16 so the
-//   fragment loads hit 32 distinct banks. 64 x 64 tiles keep a block at
-//   52 KB of shared memory at Dh 128, several blocks per SM;
-// - f32 mode: plain FMA loops, 32 x 32 tiles, 4 threads per query row;
-// - the mask is read per batch row (b = bh / H), no copy per head; the
-//   no-mask case is its own instantiation. wgmma, TMA and a pipelined
-//   K/V ring are for a later PR.
+// bf16 mode (mma.sync m16n8k16, bf16 in, f32 accumulate):
+// - one block per (query tile, batch x head), the query tile fastest, so a
+//   head's blocks run together and share its K and V in L2; a loop over
+//   KV tiles inside the block in place of the TPU's sequential grid axis;
+// - 128 query rows per block, 8 warps x 16 rows. A 64-row tile fetched
+//   and rounded each head's K and V once per 64 rows: 1.67 GB of reads per
+//   call at S 512; 128 rows cut that to ~0.88 GB (3,072 blocks x (32 KB of
+//   Q + 256 KB of K, V)), most of the re-reads hitting L2;
+// - Q is staged once; its A fragments come from ldmatrix.x4 and stay in
+//   registers for the whole KV loop;
+// - K and V go through a two-stage ring in shared memory, bf16 rows
+//   padded by 8 (16-byte aligned, 8 rows on 8 distinct bank groups for
+//   ldmatrix). At the top of tile j every thread starts its 16-byte
+//   cp.async copies of tile j + 1 (K, V and the mask's slice) into an f32
+//   staging buffer; tile j's Q K^T, softmax and P V run from stage j & 1
+//   while they are in flight; then each thread waits for its own copies
+//   and rounds those pieces to bf16 into the other stage (no barrier on
+//   the staging: a thread reads back only what it copied). One
+//   __syncthreads per tile, after the rounding: it orders tile j's reads
+//   of stage j & 1 before the stores into that stage during tile j + 1,
+//   and the stores of tile j + 1 before its reads. Loads held in
+//   registers across the tile instead spilled at 128 registers (Dh 64,
+//   two blocks per SM), and the compiler sank them to the end of the
+//   tile, next to their stores, so nothing overlapped; cp.async holds no
+//   register;
+// - K's B fragments by ldmatrix.x4 (two 8-key tiles x two 8-column
+//   halves), V's by ldmatrix.x4.trans (two 8-column output tiles); the row
+//   max and sum through quad shuffles; P repacked from the S accumulators
+//   straight into the A fragments of the PV product;
+// - the mask is read per batch row (b = bh / H), no copy per head, staged
+//   with K and V and kept as two words of key bits per stage (a ballot
+//   per 32 keys); the no-mask case is its own instantiation.
+// wgmma with a TMA-fed ring and warp specialisation, and split-KV for long
+// S with few heads, are left for later.
+//
+// f32 mode: plain FMA loops, 32 x 32 tiles, 4 threads per query row.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -55,10 +77,13 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;       // the masked logit, as on the TPU
-constexpr int kWarps = 4;
+constexpr int kWarps = 4;               // f32 mode
 constexpr int kThreads = kWarps * 32;
-constexpr int kBq = 64;                 // bf16 mode: query rows per block
+constexpr int kThreadsBf = 8 * 32;      // bf16 mode: 8 warps x 16 query rows
+constexpr int kBq = 128;                // bf16 mode: query rows per block
 constexpr int kBk = 64;                 // bf16 mode: keys per KV tile
+constexpr int kMaskWords = kBk / 32;    // bf16 mode: key bits per tile
+static_assert(kBk == 64, "a tile's key bits are read as one uint64");
 constexpr int kBqF = 32;                // f32 mode: query rows per block
 constexpr int kBkF = 32;                // f32 mode: keys per KV tile
 
@@ -78,62 +103,152 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 // D += A B: A 16x16 bf16 (row), B 16x8 bf16 (col), D 16x8 f32.
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
+                                         uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// The B fragment (16 keys x 8 columns) of a row-major [key][col] tile:
-// lanes 0-15 give the addresses of rows 0-15.
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
-                                                  const __nv_bfloat16* p) {
+// Four 8x8 bf16 matrices; lanes 8i .. 8i + 7 give the row addresses of
+// matrix i, and r[i] is this lane's pair of it (.trans: of its transpose).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const __nv_bfloat16* p) {
   const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
 }
 
-// Rows [row0, row0 + kRows) of an f32 [S, kDh] slab (row stride rs) into a
-// bf16 tile with rows of kDh + 8; rows >= S are zero.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const __nv_bfloat16* p) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// The 16-byte pieces of rows [0, kRows) of an f32 [*, kDh] tile that
+// this thread moves: piece n is row r0 + n * kRowStep, columns c .. c + 3.
+// Consecutive threads take consecutive 16 bytes of a row.
 template <int kDh, int kRows>
-__device__ __forceinline__ void stage_bf16(__nv_bfloat16* dst, const float* src,
-                                           long long rs, int row0, int S) {
-  constexpr int kLd = kDh + 8, kC4 = kDh / 4;
-  for (int i = threadIdx.x; i < kRows * kC4; i += kThreads) {
-    const int r = i / kC4, c = (i % kC4) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < S)
-      x = __ldg(reinterpret_cast<const float4*>(src + (row0 + r) * rs + c));
-    uint2 pk;
-    pk.x = pack_bf16(x.x, x.y);
-    pk.y = pack_bf16(x.z, x.w);
-    *reinterpret_cast<uint2*>(dst + r * kLd + c) = pk;
+struct Pieces {
+  static constexpr int kC4 = kDh / 4;                   // pieces per row
+  static constexpr int kN = kRows * kC4 / kThreadsBf;   // pieces per thread
+  static constexpr int kRowStep = kThreadsBf / kC4;
+  int r0, c;
+  __device__ __forceinline__ Pieces()
+      : r0(threadIdx.x / kC4), c((threadIdx.x % kC4) * 4) {}
+
+  // Rows row0 + r of src (row stride rs) into dst [kRows][kDh] f32 by
+  // cp.async, rows >= S as zeros (nothing read).
+  __device__ __forceinline__ void copy_async(float* dst, const float* src,
+                                             long long rs, int row0, int S) const {
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+      const int r = r0 + n * kRowStep;
+      const bool real = row0 + r < S;
+      const float* g = real ? src + (row0 + r) * rs + c : src;
+      const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst + r * kDh + c));
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                   :: "r"(d), "l"(g), "r"(real ? 16 : 0) : "memory");
+    }
+  }
+
+  // This thread's pieces of an f32 [kRows][kDh] tile, rounded to bf16 into
+  // dst [kRows][kDh + 8].
+  __device__ __forceinline__ void round_into(__nv_bfloat16* dst, const float* src) const {
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+      const int r = r0 + n * kRowStep;
+      const float4 x = *reinterpret_cast<const float4*>(src + r * kDh + c);
+      *reinterpret_cast<uint2*>(dst + r * (kDh + 8) + c) =
+          make_uint2(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w));
+    }
+  }
+
+  // Rows row0 + r of src straight through registers into dst [kRows][kDh
+  // + 8] bf16, rows >= S as zeros.
+  __device__ __forceinline__ void load_round(__nv_bfloat16* dst, const float* src,
+                                             long long rs, int row0, int S) const {
+    float4 x[kN];
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+      const int r = r0 + n * kRowStep;
+      x[n] = row0 + r < S
+                 ? __ldg(reinterpret_cast<const float4*>(src + (row0 + r) * rs + c))
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int n = 0; n < kN; ++n)
+      *reinterpret_cast<uint2*>(dst + (r0 + n * kRowStep) * (kDh + 8) + c) =
+          make_uint2(pack_bf16(x[n].x, x[n].y), pack_bf16(x[n].z, x[n].w));
+  }
+};
+
+// The mask's slice for keys key0 .. key0 + kBk - 1 into dst [kBk] int32
+// by 4-byte cp.async (mask rows have no 16-byte alignment), keys >= S as 0.
+__device__ __forceinline__ void copy_mask_async(int* dst, const int* mb, int key0, int S) {
+  const int i = threadIdx.x;
+  if (i < kBk) {
+    const bool real = key0 + i < S;
+    const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst + i));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(d), "l"(real ? mb + key0 + i : mb), "r"(real ? 4 : 0) : "memory");
   }
 }
 
+// This thread's cp.async copies have landed (others' need a barrier).
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Bit i of word w: key 32 w + i of the tile is kept (mask > 0). Warps
+// 0 .. kMaskWords - 1 each ballot their 32 keys from the staged slice
+// (each thread its own copy); the others leave.
+__device__ __forceinline__ void store_mask_bits(uint32_t* dst, const int* staged) {
+  if ((threadIdx.x >> 5) < kMaskWords) {
+    const uint32_t bits = __ballot_sync(0xffffffffu, staged[threadIdx.x] > 0);
+    if ((threadIdx.x & 31) == 0) dst[threadIdx.x >> 5] = bits;
+  }
+}
+
+// Shared memory of the bf16 kernel: Q [kBq], then the ring K[2], V[2]
+// [kBk] of rows of kDh + 8 bf16; the f32 staging of the next K and V
+// tiles [kBk][kDh] each and of its mask slice [kBk]; the mask ring
+// [2][kMaskWords] of key bits.
+template <int kDh>
+constexpr size_t smem_bf16() {
+  return static_cast<size_t>(kBq + 4 * kBk) * (kDh + 8) * 2 +
+         static_cast<size_t>(2 * kBk) * kDh * 4 + kBk * 4 + 2 * kMaskWords * 4;
+}
+
+// Two blocks per SM up to Dh 64 (at most 128 registers a thread). At Dh
+// 128 the output accumulators and Q fragments alone take 96 registers and
+// a block 170,256 bytes of shared memory, so one.
 template <int kDh, bool kMask>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreadsBf, kDh == 128 ? 1 : 2)
 flash_bf16_kernel(Args a, int q_tiles) {
   constexpr int kLd = kDh + 8;          // bf16 elements per staged row
   constexpr int kKSteps = kDh / 16;     // k-steps of Q K^T over Dh
   constexpr int kNd = kDh / 8;          // 8-column tiles of the output
   constexpr int kNk = kBk / 8;          // 8-key tiles of S
+  constexpr int kStage = kBk * kLd;     // bf16 elements of one K or V stage
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* Ks = Qs + kBq * kLd;
-  __nv_bfloat16* Vs = Ks + kBk * kLd;
-  int* Ms = reinterpret_cast<int*>(Vs + kBk * kLd);
+  __nv_bfloat16* Vs = Ks + 2 * kStage;
+  float* Kf = reinterpret_cast<float*>(Vs + 2 * kStage);
+  float* Vf = Kf + kBk * kDh;
+  int* Mf = reinterpret_cast<int*>(Vf + kBk * kDh);
+  uint32_t* Ms = reinterpret_cast<uint32_t*>(Mf + kBk);
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;   // fragment row group, column pair
   const int bh = blockIdx.x / q_tiles;
   const int q0 = (blockIdx.x % q_tiles) * kBq;
@@ -141,19 +256,33 @@ flash_bf16_kernel(Args a, int q_tiles) {
   const int S = a.S;
   const float* kb = a.k + b * a.ksb + h * a.ksh;
   const float* vb = a.v + b * a.vsb + h * a.vsh;
+  const int* mb = kMask ? a.mask + static_cast<long long>(b) * S : nullptr;
+  const Pieces<kDh, kBk> kv;
 
-  stage_bf16<kDh, kBq>(Qs, a.q + b * a.qsb + h * a.qsh, a.qss, q0, S);
+  // prologue: KV tile 0 by cp.async while Q goes through registers into
+  // shared memory; then tile 0 rounded into stage 0
+  kv.copy_async(Kf, kb, a.kss, 0, S);
+  kv.copy_async(Vf, vb, a.vss, 0, S);
+  if constexpr (kMask) copy_mask_async(Mf, mb, 0, S);
+  Pieces<kDh, kBq>().load_round(Qs, a.q + b * a.qsb + h * a.qsh, a.qss, q0, S);
+  cp_async_wait_all();
+  kv.round_into(Ks, Kf);
+  kv.round_into(Vs, Vf);
+  if constexpr (kMask) store_mask_bits(Ms, Mf);
   __syncthreads();
+  // the warp's 16 rows as A fragments: lanes 0-15 address rows 0-15 at
+  // column 16 kk, lanes 16-31 the same rows at column 16 kk + 8
   uint32_t qa[kKSteps][4];
-  const __nv_bfloat16* qw = Qs + warp * 16 * kLd;
 #pragma unroll
-  for (int kk = 0; kk < kKSteps; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    qa[kk][0] = ld32(qw + g * kLd + c);
-    qa[kk][1] = ld32(qw + (g + 8) * kLd + c);
-    qa[kk][2] = ld32(qw + g * kLd + c + 8);
-    qa[kk][3] = ld32(qw + (g + 8) * kLd + c + 8);
-  }
+  for (int kk = 0; kk < kKSteps; ++kk)
+    ldmatrix_x4(qa[kk], Qs + (warp * 16 + (lane & 15)) * kLd + kk * 16 +
+                            (lane >> 4) * 8);
+  // K: lanes address key 8j + (lane & 7) (+ 8 for lanes 16-31) at column
+  // 16 kk (+ 8 for lanes 8-15, 24-31): B fragments of key tiles j, j + 1.
+  // V (.trans): lanes address key 16 ks + (lane & 15) at column 8 nd (+ 8
+  // for lanes 16-31): B fragments of output tiles nd, nd + 1.
+  const int k_lane = ((lane & 7) + ((lane >> 4) << 3)) * kLd + ((lane >> 3) & 1) * 8;
+  const int v_lane = (lane & 15) * kLd + (lane >> 4) * 8;
 
   // rows g and g + 8 of the warp's 16: running max, this lane's share of
   // the running sum, and the output accumulators
@@ -162,44 +291,53 @@ flash_bf16_kernel(Args a, int q_tiles) {
 #pragma unroll
   for (int nd = 0; nd < kNd; ++nd) o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.f;
 
-  for (int kv0 = 0; kv0 < S; kv0 += kBk) {
-    __syncthreads();                    // the last tile's readers are done
-    stage_bf16<kDh, kBk>(Ks, kb, a.kss, kv0, S);
-    stage_bf16<kDh, kBk>(Vs, vb, a.vss, kv0, S);
-    if constexpr (kMask) {
-      const int* mb = a.mask + static_cast<long long>(b) * S;
-      for (int i = threadIdx.x; i < kBk; i += kThreads)
-        Ms[i] = kv0 + i < S ? mb[kv0 + i] : 0;
+  const int n_tiles = (S + kBk - 1) / kBk;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int kv0 = it * kBk, st = it & 1;
+    const bool more = it + 1 < n_tiles;
+    // tile it + 1 into the f32 staging, in flight while tile it's products
+    // run (this thread converted its pieces of the staging last tile)
+    if (more) {
+      kv.copy_async(Kf, kb, a.kss, kv0 + kBk, S);
+      kv.copy_async(Vf, vb, a.vss, kv0 + kBk, S);
+      if constexpr (kMask) copy_mask_async(Mf, mb, kv0 + kBk, S);
     }
-    __syncthreads();
 
+    const __nv_bfloat16* Kt = Ks + st * kStage;
+    const __nv_bfloat16* Vt = Vs + st * kStage;
     float s[kNk][4];
 #pragma unroll
-    for (int j = 0; j < kNk; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    for (int j = 0; j < kNk; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < kKSteps; ++kk) {
-        const __nv_bfloat16* kr = Ks + (8 * j + g) * kLd + kk * 16 + 2 * t;
-        const uint32_t kf[2] = {ld32(kr), ld32(kr + 8)};
-        mma_bf16(s[j], qa[kk], kf);
+    for (int kk = 0; kk < kKSteps; ++kk) {
+#pragma unroll
+      for (int j = 0; j < kNk; j += 2) {
+        uint32_t kf[4];
+        ldmatrix_x4(kf, Kt + 8 * j * kLd + kk * 16 + k_lane);
+        mma_bf16(s[j], qa[kk], kf[0], kf[1]);
+        mma_bf16(s[j + 1], qa[kk], kf[2], kf[3]);
       }
     }
     // s[j][e] is row g, key 8j + 2t + e; s[j][2 + e] is row g + 8
+    uint64_t keep_bits = ~0ull;         // bit 8j + e: key 8j + 2t + e kept
+    if constexpr (kMask)
+      keep_bits = (static_cast<uint64_t>(Ms[st * kMaskWords + 1]) << 32 |
+                   Ms[st * kMaskWords]) >> (2 * t);
+    const int live = S - kv0;           // keys of this tile below S
     float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
     for (int j = 0; j < kNk; ++j) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int kj = 8 * j + 2 * t + e;
-        bool keep = true;
-        if constexpr (kMask) keep = Ms[kj] > 0;
-        const bool real = kv0 + kj < S;
-        const float a0 = keep ? s[j][e] * a.scale : kNegInf;
-        const float a1 = keep ? s[j][2 + e] * a.scale : kNegInf;
-        s[j][e] = real ? a0 : -INFINITY;      // past S: no weight at all
-        s[j][2 + e] = real ? a1 : -INFINITY;
-        mx0 = fmaxf(mx0, s[j][e]);
-        mx1 = fmaxf(mx1, s[j][2 + e]);
+        const bool keep = (keep_bits >> (8 * j + e)) & 1;
+        float a0 = keep ? s[j][e] * a.scale : kNegInf;
+        float a1 = keep ? s[j][2 + e] * a.scale : kNegInf;
+        if (kj >= live) a0 = a1 = -INFINITY;  // past S: no weight at all
+        s[j][e] = a0;
+        s[j][2 + e] = a1;
+        mx0 = fmaxf(mx0, a0);
+        mx1 = fmaxf(mx1, a1);
       }
     }
 #pragma unroll
@@ -239,14 +377,24 @@ flash_bf16_kernel(Args a, int q_tiles) {
                               pack_bf16(s[2 * ks][2], s[2 * ks][3]),
                               pack_bf16(s[2 * ks + 1][0], s[2 * ks + 1][1]),
                               pack_bf16(s[2 * ks + 1][2], s[2 * ks + 1][3])};
-      const __nv_bfloat16* vr = Vs + (16 * ks + (lane & 15)) * kLd;
 #pragma unroll
-      for (int nd = 0; nd < kNd; ++nd) {
-        uint32_t vf[2];
-        ldmatrix_x2_trans(vf, vr + 8 * nd);
-        mma_bf16(o[nd], pa, vf);
+      for (int nd = 0; nd < kNd; nd += 2) {
+        uint32_t vf[4];
+        ldmatrix_x4_trans(vf, Vt + 16 * ks * kLd + 8 * nd + v_lane);
+        mma_bf16(o[nd], pa, vf[0], vf[1]);
+        mma_bf16(o[nd + 1], pa, vf[2], vf[3]);
       }
     }
+
+    // tile it + 1 rounded into the other stage: its last readers were
+    // tile it - 1, done before the barrier that ended that tile
+    if (more) {
+      cp_async_wait_all();
+      kv.round_into(Ks + (st ^ 1) * kStage, Kf);
+      kv.round_into(Vs + (st ^ 1) * kStage, Vf);
+      if constexpr (kMask) store_mask_bits(Ms + (st ^ 1) * kMaskWords, Mf);
+    }
+    __syncthreads();
   }
 
 #pragma unroll
@@ -368,40 +516,67 @@ flash_f32_kernel(Args a, int q_tiles) {
 }
 
 template <int kDh>
-constexpr size_t smem_bytes(bool bf16) {
-  return bf16 ? static_cast<size_t>(kBq + 2 * kBk) * (kDh + 8) * 2 + kBk * 4
-              : (static_cast<size_t>(kBqF + kBkF) * (kDh + 1) + kBkF * kDh +
-                 kBqF * (kBkF + 1) + kBkF) * 4;
+constexpr size_t smem_f32() {
+  return (static_cast<size_t>(kBqF + kBkF) * (kDh + 1) + kBkF * kDh +
+          kBqF * (kBkF + 1) + kBkF) * 4;
 }
 
-int launch(void (*kernel)(Args, int), int q_tiles, int bh, size_t smem,
-           cudaStream_t stream, const Args& a) {
+int launch(void (*kernel)(Args, int), int q_tiles, int bh, int threads,
+           size_t smem, cudaStream_t stream, const Args& a) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<q_tiles * bh, kThreads, smem, stream>>>(a, q_tiles);
+  kernel<<<q_tiles * bh, threads, smem, stream>>>(a, q_tiles);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int kDh>
 int dispatch(const Args& a, int bh, bool masked, bool bf16, cudaStream_t s) {
-  const size_t smem = smem_bytes<kDh>(bf16);
   if (bf16) {
     const int qt = (a.S + kBq - 1) / kBq;
-    return masked ? launch(flash_bf16_kernel<kDh, true>, qt, bh, smem, s, a)
-                  : launch(flash_bf16_kernel<kDh, false>, qt, bh, smem, s, a);
+    const size_t smem = smem_bf16<kDh>();
+    return masked
+        ? launch(flash_bf16_kernel<kDh, true>, qt, bh, kThreadsBf, smem, s, a)
+        : launch(flash_bf16_kernel<kDh, false>, qt, bh, kThreadsBf, smem, s, a);
   }
   const int qt = (a.S + kBqF - 1) / kBqF;
-  return masked ? launch(flash_f32_kernel<kDh, true>, qt, bh, smem, s, a)
-                : launch(flash_f32_kernel<kDh, false>, qt, bh, smem, s, a);
+  const size_t smem = smem_f32<kDh>();
+  return masked ? launch(flash_f32_kernel<kDh, true>, qt, bh, kThreads, smem, s, a)
+                : launch(flash_f32_kernel<kDh, false>, qt, bh, kThreads, smem, s, a);
+}
+
+// Resident blocks per SM of a bf16 instantiation (-1 on a CUDA error).
+template <int kDh>
+int occupancy_bf16(bool masked) {
+  void (*kernel)(Args, int) = masked ? flash_bf16_kernel<kDh, true>
+                                     : flash_bf16_kernel<kDh, false>;
+  const size_t smem = smem_bf16<kDh>();
+  int blocks = 0;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem)) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreadsBf,
+                                                    smem) != cudaSuccess)
+    return -1;
+  return blocks;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Query and KV tile of the bf16 (mma.sync) and f32 instantiations.
+// KV tile of the bf16 (mma.sync) and f32 instantiations.
 int flash_attention_kv_tile(int bf16) { return bf16 ? kBk : kBkF; }
+
+// Resident blocks per SM of the bf16 instantiation for head width dh
+// (32, 64, 128) with or without the mask; -1 for another dh or an error.
+int flash_attention_occupancy(int dh, int masked) {
+  switch (dh) {
+    case 32: return occupancy_bf16<32>(masked != 0);
+    case 64: return occupancy_bf16<64>(masked != 0);
+    case 128: return occupancy_bf16<128>(masked != 0);
+    default: return -1;
+  }
+}
 
 // q, k, v [B, H, S, dh] f32 with element strides (sb, sh, ss) and a unit
 // last stride, 16-byte aligned rows; mask [B, S] int32 (> 0 = attend) or

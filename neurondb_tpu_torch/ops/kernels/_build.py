@@ -92,7 +92,12 @@ def build(names: Iterable[str]) -> None:
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    """Build ``csrc/<name>.cu`` if its library is missing, then load it."""
+    """Build ``csrc/<name>.cu`` if its library is missing, then load it.
+    Once loaded, the library is returned without hashing its sources
+    again: the wrappers call this on every launch."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
     build([name])
     with _lock:
         if name not in _libs:

@@ -62,22 +62,25 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           mask: Optional[torch.Tensor] = None, *,
                           bf16: bool = True, kv_tile: int = KV_TILE
                           ) -> torch.Tensor:
-    """The kernel's function in plain torch: q, k, v [B, H, S, Dh], mask
-    [B, S] (``int32(mask) > 0`` = attend). Per KV tile, in the exp2
-    domain: s = (q . k) * log2(e)/sqrt(Dh), -1e30 where masked;
+    """The kernel's function in plain torch: q [B, H, Sq, Dh], k, v [B, H,
+    S, Dh], mask [B, S] (``int32(mask) > 0`` = attend). Per KV tile, in
+    the exp2 domain: s = (q . k) * log2(e)/sqrt(Dh), -1e30 where masked;
     m' = max(m, max s); p = exp2(s - m'); l' = exp2(m - m') l + sum p;
     acc' = exp2(m - m') acc + round(p) @ v; out = acc / max(l, 1e-30), f32.
-    ``bf16`` rounds q, k, v and p to bf16 (products exact in f32)."""
-    B, H, S, Dh = q.shape
+    ``bf16`` rounds q, k, v and p to bf16 (products exact in f32). Query
+    rows are independent: any slice of q's rows gives that slice of the
+    output, so the kernel's query tile changes nothing."""
+    B, H, Sq, Dh = q.shape
+    S = k.shape[2]
     scale = LOG2E / (Dh ** 0.5)
     dt = torch.bfloat16 if bf16 else torch.float32
     qf, kf, vf = (t.to(dt).float() for t in (q, k, v))
     keep = None if mask is None else \
         (mask.to(torch.int32) > 0)[:, None, None, :]
     dev = q.device
-    m = torch.full((B, H, S, 1), NEG_INF, dtype=torch.float32, device=dev)
-    l = torch.zeros((B, H, S, 1), dtype=torch.float32, device=dev)
-    acc = torch.zeros((B, H, S, Dh), dtype=torch.float32, device=dev)
+    m = torch.full((B, H, Sq, 1), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, H, Sq, 1), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, H, Sq, Dh), dtype=torch.float32, device=dev)
     neg = torch.tensor(NEG_INF, dtype=torch.float32, device=dev)
     for j0 in range(0, S, kv_tile):
         j1 = min(j0 + kv_tile, S)
@@ -102,6 +105,8 @@ def _lib() -> ctypes.CDLL:
     f.restype = ctypes.c_int
     lib.flash_attention_kv_tile.argtypes = [ctypes.c_int]
     lib.flash_attention_kv_tile.restype = ctypes.c_int
+    lib.flash_attention_occupancy.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.flash_attention_occupancy.restype = ctypes.c_int
     return lib
 
 

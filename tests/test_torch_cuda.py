@@ -234,7 +234,10 @@ FLASH_TOL = {False: 1e-4, True: 2e-3}
 @pytest.mark.parametrize("dh", [32, 64, 128])
 @pytest.mark.parametrize("S,masking", [(1, "none"), (100, "ragged"),
                                        (128, "none"), (300, "ragged"),
-                                       (513, "full_row"), (1900, "ragged")])
+                                       (513, "full_row"), (1900, "ragged"),
+                                       # the 128-row query tile's edges
+                                       (127, "ragged"), (129, "full_row"),
+                                       (257, "none"), (640, "ragged")])
 def test_flash_kernel_matches_plain(dev, bf16, dh, S, masking):
     gen = torch.Generator(device=dev).manual_seed(S + dh)
     B, H = 3, 2

@@ -126,6 +126,28 @@ def test_pallas_fully_masked_row_averages_its_padding():
 
 
 @pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("chunk", [128, 64, 1])
+def test_query_tile_does_not_change_the_numbers(bf16, chunk):
+    """At the kernel's KV tile the plain version over query rows in
+    chunks (the kernel's 128-row query tile, a 64-row tile, one row)
+    gives the output of the whole: only the KV tile fixes the rounding of
+    p, so the query tile is free. q and k lie on a grid of quarters in
+    [-1, 1], so Q K^T is exact in f32 and the CPU matmul's order for a
+    single row cannot move a p across a bf16 rounding step."""
+    S = 300                               # a ragged last chunk at 128, 64
+    q, k, v = _qkv(11, 2, 2, S, 64)
+    q, k = (np.clip(np.round(a * 2) / 4, -1, 1).astype(np.float32)
+            for a in (q, k))
+    mask = _ragged_mask(2, S, (S, 130))
+    whole = _plain(q, k, v, mask, bf16=bf16, kv_tile=FA.KV_TILE)
+    parts = np.concatenate(
+        [_plain(np.ascontiguousarray(q[:, :, i:i + chunk]), k, v, mask,
+                bf16=bf16, kv_tile=FA.KV_TILE) for i in range(0, S, chunk)],
+        axis=2)
+    np.testing.assert_allclose(parts, whole, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
 def test_cpu_dispatch_is_the_plain_version_at_the_kernel_tile(bf16):
     q, k, v = _qkv(7, 2, 3, 150, 64)
     mask = _ragged_mask(2, 150, (150, 70))
