@@ -51,15 +51,16 @@ each print their own lines:
    n_sub = 16 index (no OPQ) at nprobe 4, rerank 0 and 8;
 9. flash kernel against plain: ``flash_attention``'s CUDA kernel against
    ``flash_attention_plain`` at the kernel's KV tile, for Dh in {32, 64,
-   128}, S in {1, 100, 128, 300, 512, 513, 1900} (bf16 also at the
-   128-row query tile's edges 127, 129, 257, 640), ragged masks, a fully
-   masked row and no mask, bf16 and f32 products; the bf16
-   instantiations' ptxas registers, spills and resident blocks per SM;
-   then both modes timed at (64, 12, 512, 64) with a ragged mask, (1, 8,
-   8192, 128) and (1, 2, 8192, 64) beside the bound, the plain version
-   and ``scaled_dot_product_attention`` on the same inputs (the bf16 mode
-   and SDPA on bf16 casts made inside the timed call in alternating
-   turns, medians and their ratio);
+   128}, S in {1, 100, 127, 128, 129, 257, 300, 512, 513, 640, 1900} (the
+   128-row query tile's edges among them), ragged masks, a fully masked
+   row and no mask, bf16 and f32 products; every instantiation's ptxas
+   registers, spills and resident blocks per SM; then both modes timed at
+   (64, 12, 512, 64) with a ragged mask, (1, 8, 8192, 128) and (1, 2,
+   8192, 64) beside the bound, the plain version and
+   ``scaled_dot_product_attention`` on the same inputs (bf16: on bf16
+   casts made inside the timed call), kernel and SDPA in alternating
+   turns, medians and their ratio; SDPA's kernels named once per mode
+   from a profile;
 10. cross-encoder main path: a BERT-base export (random weights from a
    numpy seed) in a temp dir; ``rerank_cross_encoder`` over 256 docs of
    512 tokens through ``PretrainedCrossEncoder(max_len=512, batch=64)``
@@ -107,8 +108,8 @@ FLASH_TOL = {True: 2e-3, False: 1e-4}
 REF_TOL = {True: 5e-2, False: 2e-3}     # vs attention_reference (JAX tests)
 FLASH_SHAPES = ((64, 12, 512, 64, True), (1, 8, 8192, 128, False),
                 (1, 2, 8192, 64, False))  # (B, H, S, Dh, ragged mask)
-FLASH_S = (1, 100, 128, 300, 512, 513, 1900)       # the grid's sequence lengths
-FLASH_S_BF16 = FLASH_S + (127, 129, 257, 640)      # + the 128-row query tile's edges
+# the grid's sequence lengths, the 128-row query tile's edges among them
+FLASH_S = (1, 100, 127, 128, 129, 257, 300, 512, 513, 640, 1900)
 FLASH_TURNS, FLASH_REPS = 7, 10    # alternating turns of kernel and SDPA
 RR_DOCS, RR_BATCH, RR_LEN, RR_K = 256, 64, 512, 10
 BERT_BASE = dict(vocab=30522, hidden=768, layers=12, heads=12, ff=3072,
@@ -119,9 +120,12 @@ BERT_BASE = dict(vocab=30522, hidden=768, layers=12, heads=12, ff=3072,
 SCORE_TOL = 1e-3
 SELF_HIT_BAR = 0.99
 # NVIDIA H100 SXM data sheet (dense): HBM3 bytes/s, and FLOP/s by the
-# type of the products: bf16 x bf16 -> f32 on the tensor cores, f32 outside
+# type of the products: bf16 x bf16 -> f32 on the tensor cores, f32
+# outside them, and f32-accurate products made of three TF32 tensor-core
+# products each (the f32 flash mode) at a third of the 495 TFLOP/s TF32 rate
 HBM_BPS = 3.35e12
-PEAK_FLOPS = {"bf16 tensor core": 989e12, "f32": 67e12}
+PEAK_FLOPS = {"bf16 tensor core": 989e12, "f32": 67e12,
+              "f32 as 3 TF32 tensor-core passes": 495e12 / 3}
 SOURCES = {
     "ivf_grouped_scan": ("neurondb_tpu_torch/csrc/ivf_scan_grouped.cu",
                          "neurondb_tpu/ops/pallas/ivf_scan_grouped.py:101"),
@@ -1035,13 +1039,14 @@ def _flash_inputs(gen, B, H, S, dh, ragged, device):
 
 
 def _flash_ptxas(log):
-    """{(Dh, masked): (registers, spill store + load bytes)} of the bf16
-    instantiations, from ptxas's lines in a flash build's log."""
+    """{(mode, Dh, masked): (registers, spill store + load bytes)} of the
+    bf16 and f32 instantiations, from ptxas's lines in a flash build's
+    log."""
     out, cur = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"flash_bf16_kernelILi(\d+)ELb([01])E", line)
-            cur = (int(m.group(1)), m.group(2) == "1") if m else None
+            m = re.search(r"flash_(bf16|f32)_kernelILi(\d+)ELb([01])E", line)
+            cur = (m.group(1), int(m.group(2)), m.group(3) == "1") if m else None
             if cur:
                 out[cur] = [None, 0]
         elif cur and "spill" in line:
@@ -1063,21 +1068,22 @@ def phase_flash_kernel(smi):
         fail("flash kernel's KV tiles differ from the wrapper's")
     from neurondb_tpu_torch.ops.kernels import _build
     ptxas = _flash_ptxas(_build.build_log("flash_attention"))
-    for dh in (32, 64, 128):
-        for masked in (True, False):
-            regs, spill = ptxas.get((dh, masked), (None, None))
-            log(f"[flash] flash_bf16_kernel<Dh {dh}, "
-                f"{'mask' if masked else 'no mask'}>: {regs} registers, "
-                f"{spill} bytes spilled (ptxas), "
-                f"{lib.flash_attention_occupancy(dh, int(masked))} resident "
-                f"blocks per SM")
+    for mode in ("bf16", "f32"):
+        for dh in (32, 64, 128):
+            for masked in (True, False):
+                regs, spill = ptxas.get((mode, dh, masked), (None, None))
+                log(f"[flash] flash_{mode}_kernel<Dh {dh}, "
+                    f"{'mask' if masked else 'no mask'}>: {regs} registers, "
+                    f"{spill} bytes spilled (ptxas), "
+                    f"{lib.flash_attention_occupancy(dh, int(masked), int(mode == 'bf16'))}"
+                    f" resident blocks per SM")
     gen = torch.Generator(device=dev).manual_seed(9)
     errs = {True: 0.0, False: 0.0}
     n_cases = 0
     for bf16 in (True, False):
         tile = FA.KV_TILE if bf16 else FA.KV_TILE_F32
         for dh in (32, 64, 128):
-            for S in FLASH_S_BF16 if bf16 else FLASH_S:
+            for S in FLASH_S:
                 for masking in ("ragged", "full_row", "none"):
                     B, H = 3, 2
                     q, k, v, _ = _flash_inputs(gen, B, H, S, dh, False, dev)
@@ -1146,26 +1152,26 @@ def phase_flash_kernel(smi):
             def kernel():
                 return FA.flash_attention(q, k, v, mask, bf16=bf16)
 
-            if bf16:
-                # the library call on bf16 casts of the same f32 inputs,
-                # made inside the timed call (the kernel reads the f32
-                # inputs and rounds them itself), timed in turns with the
-                # kernel so that a shift of the process moves both
-                t = _turns_ms({"kernel": kernel, "sdpa": lambda: (
-                    F.scaled_dot_product_attention(
-                        q.bfloat16(), k.bfloat16(), v.bfloat16(),
-                        attn_mask=amask))}, FLASH_REPS, FLASH_TURNS)
-                ms, lib_ms = t["kernel"], t["sdpa"]
-                how = (f"medians of {FLASH_TURNS} alternating turns of "
-                       f"{FLASH_REPS} calls; kernel / SDPA {ms / lib_ms:.3f}")
-            else:
-                ms = _cuda_ms(kernel, FLASH_REPS)
-                lib_ms = _cuda_ms(lambda: F.scaled_dot_product_attention(
-                    q, k, v, attn_mask=amask), FLASH_REPS)
-                how = f"means of {FLASH_REPS} calls"
+            # the library call on the same f32 inputs (bf16: on bf16
+            # casts made inside the timed call, as the kernel reads the
+            # f32 inputs and rounds them itself), timed in turns with the
+            # kernel so that a shift of the process moves both
+            def sdpa():
+                args = (q, k, v) if not bf16 else \
+                    (q.bfloat16(), k.bfloat16(), v.bfloat16())
+                return F.scaled_dot_product_attention(*args, attn_mask=amask)
+
+            if (B, H, S, dh) == FLASH_SHAPES[0][:4]:
+                _profile(f"flash SDPA {mode}", sdpa)   # names its kernels
+            t = _turns_ms({"kernel": kernel, "sdpa": sdpa}, FLASH_REPS,
+                          FLASH_TURNS)
+            ms, lib_ms = t["kernel"], t["sdpa"]
+            how = (f"medians of {FLASH_TURNS} alternating turns of "
+                   f"{FLASH_REPS} calls; kernel / SDPA {ms / lib_ms:.3f}")
             plain_ms = _cuda_ms(lambda: FA.flash_attention_plain(
                 q, k, v, mask, bf16=bf16, kv_tile=tile), 2)
-            rate = "bf16 tensor core" if bf16 else "f32"
+            rate = "bf16 tensor core" if bf16 else \
+                "f32 as 3 TF32 tensor-core passes"
             bound_ms, bound_by = _bound(nbytes, flops, rate)
             log(f"[flash] {mode:4s} (B, H, S, Dh) = {(B, H, S, dh)}"
                 f"{', ragged mask' if ragged else ', no mask'}: kernel "
@@ -1173,7 +1179,8 @@ def phase_flash_kernel(smi):
                 f"{lib_ms:.3f} ms ({how}), plain {plain_ms:.3f} ms, bound "
                 f"{bound_ms:.3f} ms ({bound_by}; "
                 f"{nbytes / 1e9:.3f} GB, {flops / 1e9:.1f} GFLOP at the "
-                f"{rate} peak); max |kernel - plain| {err:.3e}")
+                f"{rate} peak, {PEAK_FLOPS[rate] / 1e12:.0f} TFLOP/s); "
+                f"max |kernel - plain| {err:.3e}")
             if (B, H, S, dh) == FLASH_SHAPES[0][:4]:
                 stats[mode] = {"max_abs_err": max(errs[bf16], err), "ms": ms,
                                "plain_ms": plain_ms, "bound_ms": bound_ms,

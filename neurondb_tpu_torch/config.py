@@ -1,7 +1,10 @@
 """Configuration — the same knobs as ``neurondb_tpu.config.NDBConfig``.
 
 Same fields, the same dotted-name get/set/reset and ``configure``, plus
-a ``device`` and an ``ivf_kernel`` field. Environment overrides are read
+a ``device`` and an ``ivf_kernel`` field. ``device`` defaults to
+``"cuda"``: entry points run on the card unless the caller asks for the
+CPU (``device="cpu"`` or ``configure(device="cpu")``, as the tests do),
+and nothing picks the CPU on its own. Environment overrides are read
 under the prefix ``NEURONDB_TORCH_<UPPER_SNAKE>`` so the two packages can
 be configured apart in one process.
 
@@ -105,7 +108,7 @@ class NDBConfig:
     validate_inputs: bool = True
 
     # ---- torch only ----
-    device: str = "auto"                  # auto = cuda when present, else cpu
+    device: str = "cuda"                  # the card; CPU runs ask for "cpu"
 
     def show(self, name: str) -> Any:
         return getattr(self, _norm(name))
@@ -175,12 +178,15 @@ def configure(**kwargs: Any) -> NDBConfig:
 
 
 def resolve_device(device=None) -> torch.device:
-    """``device`` argument of an index constructor -> torch.device;
-    ``None`` takes ``config.device``, and ``"auto"`` is CUDA when a card
-    is present."""
+    """``device`` argument of an index or encoder constructor ->
+    torch.device; ``None`` takes ``config.device`` (``"cuda"`` unless
+    configured). Nothing falls back to the CPU: without a card, the
+    default fails at the first tensor put on ``"cuda"``."""
     dev = get_config().device if device is None else device
     if isinstance(dev, str) and dev == "auto":
-        dev = "cuda" if torch.cuda.is_available() else "cpu"
+        raise ValueError('device "auto" names no device (nothing picks '
+                         'the CPU on its own): pass "cuda", "cuda:N", '
+                         '"cpu" or a torch.device')
     return torch.device(dev)
 
 

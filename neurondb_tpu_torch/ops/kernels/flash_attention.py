@@ -5,14 +5,20 @@ Counterpart of ``neurondb_tpu/ops/pallas/flash_attention.py``:
 - ``attention_reference``: the full-matrix oracle (softmax over
   ``q k^T / sqrt(Dh)``, masked logits at ``NEG_INF``);
 - ``flash_attention``: on a CUDA tensor the hand-written kernel
-  ``csrc/flash_attention.cu``, on a CPU tensor ``flash_attention_plain``;
+  ``csrc/flash_attention.cu``, on a CPU tensor ``flash_attention_plain``.
+  Both modes run on the tensor cores (``mma.sync``): ``bf16=True`` as
+  bf16 x bf16 -> f32 products; ``bf16=False`` as exact-f32 products,
+  each made of three TF32 products of the operands' high and low parts
+  (3xTF32, ~2^-21 relative per product);
 - ``flash_attention_plain``: the kernel's arithmetic in plain torch, KV
   tile by KV tile (exp2-domain online softmax, bf16 rounding of q, k, v
   and of p before the PV product), with the tile as an argument. The
   rounding of p is relative to the running maximum, so results depend on
   the KV tile at the bf16 level: the tests hold it to the Pallas kernel
   in interpret mode at the same tile, and the card check holds the
-  kernel to it at the kernel's tile (``KV_TILE``, ``KV_TILE_F32``).
+  kernel to it at the kernel's tile (``KV_TILE``, ``KV_TILE_F32``: 64
+  keys, one stage of the kernel's K/V ring, in both modes). In f32 the
+  tile only reorders sums.
 
 Semantics the TPU kernel's padding changes: a key index >= S contributes
 nothing, so a query row whose every key is masked gets the mean of v over
@@ -35,8 +41,8 @@ from neurondb_tpu_torch.ops.kernels import _build
 
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
-KV_TILE = 64         # the kernel's KV tile, bf16 products (mma.sync)
-KV_TILE_F32 = 32     # the kernel's KV tile, f32 products
+KV_TILE = 64         # the kernel's KV tile, bf16 products
+KV_TILE_F32 = 64     # the kernel's KV tile, f32 products (3xTF32)
 HEAD_DIMS = (32, 64, 128)
 
 # kernel launches by flash_attention on CUDA tensors, per mode
@@ -60,8 +66,8 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           mask: Optional[torch.Tensor] = None, *,
-                          bf16: bool = True, kv_tile: int = KV_TILE
-                          ) -> torch.Tensor:
+                          bf16: bool = True, kv_tile: int = KV_TILE,
+                          matmul=torch.matmul) -> torch.Tensor:
     """The kernel's function in plain torch: q [B, H, Sq, Dh], k, v [B, H,
     S, Dh], mask [B, S] (``int32(mask) > 0`` = attend). Per KV tile, in
     the exp2 domain: s = (q . k) * log2(e)/sqrt(Dh), -1e30 where masked;
@@ -69,7 +75,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     acc' = exp2(m - m') acc + round(p) @ v; out = acc / max(l, 1e-30), f32.
     ``bf16`` rounds q, k, v and p to bf16 (products exact in f32). Query
     rows are independent: any slice of q's rows gives that slice of the
-    output, so the kernel's query tile changes nothing."""
+    output, so the kernel's query tile changes nothing. ``matmul`` takes
+    both products of each tile (a test passes the kernel's 3xTF32
+    split)."""
     B, H, Sq, Dh = q.shape
     S = k.shape[2]
     scale = LOG2E / (Dh ** 0.5)
@@ -84,14 +92,14 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     neg = torch.tensor(NEG_INF, dtype=torch.float32, device=dev)
     for j0 in range(0, S, kv_tile):
         j1 = min(j0 + kv_tile, S)
-        s = (qf @ kf[:, :, j0:j1].transpose(-1, -2)) * scale
+        s = matmul(qf, kf[:, :, j0:j1].transpose(-1, -2)) * scale
         if keep is not None:
             s = torch.where(keep[..., j0:j1], s, neg)
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         p = torch.exp2(s - m_new)
         alpha = torch.exp2(m - m_new)
         l = alpha * l + p.sum(-1, keepdim=True)
-        acc = acc * alpha + p.to(dt).float() @ vf[:, :, j0:j1]
+        acc = acc * alpha + matmul(p.to(dt).float(), vf[:, :, j0:j1])
         m = m_new
     return acc / torch.clamp(l, min=1e-30)
 
@@ -105,7 +113,7 @@ def _lib() -> ctypes.CDLL:
     f.restype = ctypes.c_int
     lib.flash_attention_kv_tile.argtypes = [ctypes.c_int]
     lib.flash_attention_kv_tile.restype = ctypes.c_int
-    lib.flash_attention_occupancy.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.flash_attention_occupancy.argtypes = [ctypes.c_int] * 3
     lib.flash_attention_occupancy.restype = ctypes.c_int
     return lib
 
@@ -161,7 +169,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bf16: bool = True) -> torch.Tensor:
     """q, k, v [B, H, S, Dh]; mask [B, S] (>0 = attend) or None. Returns
     f32 [B, H, S, Dh]. ``bf16=True`` (default) computes QK^T and PV as
-    bf16 x bf16 -> f32 products; the softmax state stays f32.
+    bf16 x bf16 -> f32 products; ``bf16=False`` to f32 accuracy (3xTF32
+    on the card). The softmax state stays f32.
 
     CPU tensors take ``flash_attention_plain`` at the kernel's KV tile;
     CUDA tensors launch the kernel or raise."""

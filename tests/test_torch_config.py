@@ -65,14 +65,25 @@ def test_ivf_kernel_env_override(fresh_config, monkeypatch):
 
 
 def test_device_and_store_dtype_resolution(fresh_config):
+    # the default is the card, whether or not one is present
+    assert TC.NDBConfig().device == "cuda"
+    assert TC.resolve_device() == torch.device("cuda")
     TC.configure(device="cpu")
     assert TC.resolve_device() == torch.device("cpu")
     assert TC.resolve_device("meta") == torch.device("meta")
-    want = "cuda" if torch.cuda.is_available() else "cpu"
-    assert TC.resolve_device("auto").type == want
+    assert TC.resolve_device(torch.device("cuda", 1)) == torch.device("cuda", 1)
     assert TC.resolve_store_dtype(torch.device("cpu")) == torch.float32
     assert TC.resolve_store_dtype(torch.device("cuda")) == torch.bfloat16
     assert TC.resolve_store_dtype(torch.device("cpu"), "bfloat16") == \
         torch.bfloat16
     with pytest.raises(ValueError, match="store_dtype"):
         TC.resolve_store_dtype(torch.device("cpu"), "int8")
+
+
+def test_device_auto_raises(fresh_config):
+    """No entry point picks the CPU on its own: "auto" names no device."""
+    with pytest.raises(ValueError, match="auto"):
+        TC.resolve_device("auto")
+    TC.configure(device="auto")
+    with pytest.raises(ValueError, match="cpu"):
+        TC.resolve_device()

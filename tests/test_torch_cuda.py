@@ -224,7 +224,8 @@ def test_ivfpq_index_on_card_matches_cpu(dev):
 
 
 # flash kernel vs its plain version at the kernel's KV tile: f32 sums in
-# another order (fmaf and the tensor cores' accumulation); with bf16
+# another order (the tensor cores' accumulation; in f32, 3xTF32 products
+# within ~2^-21 of exact ones); with bf16
 # products a p within f32 noise of a rounding boundary may round one bf16
 # step apart, moving an output by up to 2^-8 * (p / l) * |v|
 FLASH_TOL = {False: 1e-4, True: 2e-3}
@@ -266,6 +267,21 @@ def test_flash_kernel_tiles_match_the_wrapper(dev):
     lib = FA._lib()
     assert lib.flash_attention_kv_tile(1) == FA.KV_TILE
     assert lib.flash_attention_kv_tile(0) == FA.KV_TILE_F32
+    # resident blocks per SM, both modes: two up to Dh 64, one at Dh 128
+    for bf16 in (1, 0):
+        for masked in (1, 0):
+            for dh in FA.HEAD_DIMS:
+                want = 1 if dh == 128 else 2
+                assert lib.flash_attention_occupancy(dh, masked, bf16) == want
+        assert lib.flash_attention_occupancy(48, 1, bf16) == -1
+
+
+def test_default_device_is_the_card(dev):
+    """An entry point given no device runs on the card."""
+    x = np.random.default_rng(0).standard_normal((2000, 32)).astype(np.float32)
+    index = IVFFlatIndex(x, nlists=8)
+    assert index.device.type == "cuda"
+    assert index.search(x[:4], k=1, nprobe=8)[1][:, 0].tolist() == [0, 1, 2, 3]
 
 
 def test_tiny_bert_on_card_matches_cpu(dev):

@@ -172,3 +172,42 @@ def test_bool_and_float_masks_follow_int32_cast():
     a = FA.flash_attention(q, k, v, m)
     b = FA.flash_attention(q, k, v, torch.arange(40)[None] < 20)
     torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def _tf32(x):
+    """What an mma.sync reads of an f32 operand as TF32: its top 19 bits
+    (the low 13 mantissa bits cleared)."""
+    return (x.view(torch.int32) & ~0x1fff).view(torch.float32)
+
+
+def _matmul_3xtf32(a, b):
+    """a @ b as the f32 kernel makes it: each operand split into hi (its
+    TF32 part) and lo = x - hi, then lo.hi + hi.lo and hi.hi added to
+    it, lo truncated to TF32 as the mma reads it."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = a - ah, b - bh
+    assert torch.equal(ah + al, a) and torch.equal(bh + bl, b)
+    return (_tf32(al) @ bh + ah @ _tf32(bl)) + ah @ bh
+
+
+@pytest.mark.parametrize("scale", [1.0, 30.0])
+@pytest.mark.parametrize("Dh", [32, 64, 128])
+def test_3xtf32_products_keep_f32_accuracy(Dh, scale):
+    """The f32 kernel's numeric design on the CPU: both products of every
+    KV tile by the 3xTF32 split, run through the plain version's tile
+    loop, stay within a tenth of the card check's f32 tolerance
+    (chip_smoke.FLASH_TOL[False] = 1e-4) of exact-f32 products. q is
+    scaled up by ``scale`` and k down by it, so the logits keep their
+    size while the split sees large and small exponents; v is scaled up,
+    and the tolerance with it."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(Dh, 2, 2, 300, Dh))
+    q, k, v = q * scale, k / scale, v * scale
+    mask = torch.from_numpy(_ragged_mask(2, 300, (300, 0)))  # a full row
+    want = FA.flash_attention_plain(q, k, v, mask, bf16=False,
+                                    kv_tile=FA.KV_TILE_F32)
+    got = FA.flash_attention_plain(q, k, v, mask, bf16=False,
+                                   kv_tile=FA.KV_TILE_F32,
+                                   matmul=_matmul_3xtf32)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose((got / scale).numpy(), (want / scale).numpy(),
+                               rtol=1e-5, atol=1e-5)

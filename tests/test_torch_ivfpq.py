@@ -195,6 +195,7 @@ def test_int8_checkpoint_without_scales_is_refused(data, tmp_path):
     with np.load(f"{path}/arrays.npz") as z:
         arrays = {k: z[k] for k in z.files if k != "orig_scale"}
     np.savez_compressed(f"{path}/arrays.npz", **arrays)
-    for cls in (TIVFPQ, JIVFPQ):
-        with pytest.raises(ValueError, match="orig_scale"):
-            cls.load(path)
+    with pytest.raises(ValueError, match="orig_scale"):
+        TIVFPQ.load(path, device="cpu")
+    with pytest.raises(ValueError, match="orig_scale"):
+        JIVFPQ.load(path)
