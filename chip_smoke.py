@@ -19,12 +19,18 @@ each print their own lines:
    exact, packed and blockmin selection modes, and an all-sentinel tile
    set; then each mode timed at the headline shapes (16,384 queries,
    nprobe 8, nlists 1024, 1M rows) beside its bound;
-4. PQ kernel against plain: ``grouped_pq_scan``'s CUDA kernel against its
-   plain torch version, list lengths 0, 3, 127, 128, 1024, 1025, 2500,
-   ..., n_sub in {16, 32}, k in {10, 80, 256}, exact and packed, ip and
-   sq-L2 tables, and an all-sentinel tile set; then both modes timed at
-   the IVF-PQ headline shapes (8,192 queries, nprobe 8, n_sub 32, 1M rows)
-   beside the bound;
+4. PQ kernel against plain: both entries of ``csrc/ivfpq_scan.cu``, the
+   fused one (``grouped_pq_scan_fused``: tables built in shared memory,
+   live slots only) and the table-fed one (``grouped_pq_scan``), against
+   their plain torch versions, bit for bit: list lengths 0, 3, 127, 128,
+   1024, 1025, 2500, ..., n_sub in {16, 32}, k in {10, 80, 256}, exact
+   and packed, ip, sq-L2 and sq-L2 with an OPQ rotation, ragged tiles
+   (empty slots), and an all-sentinel tile set; ptxas registers and
+   spills of the four instantiations; then both modes of the fused kernel
+   timed at the IVF-PQ headline shapes (8,192 queries, nprobe 8, n_sub
+   32, 1M rows) in alternating turns with ``build_luts`` + the table-fed
+   kernel, beside the bound (bytes and operations printed), the
+   shared-memory lookup floor and the resident warps per SM;
 5. IVFFlat main path: the 1M x 128 clustered corpus of ``bench.py``;
    exact neighbours from ``FlatIndex`` on the card, held against float64
    on the host and set beside the committed ground truth
@@ -44,7 +50,10 @@ each print their own lines:
    (16, 24) at batch 8,192 over the 2-byte query wire: recall@10 and the
    pipelined QPS (median of 3 reps of 4 batches); exact selection at the
    first point that reaches recall@10 0.95 (it must exist); one search
-   profiled (device time by kernel, busy share); a save/load round trip
+   profiled (device time by kernel, busy share, the fill and scatter
+   kernels' time); one search's peak device memory, which must stay below
+   the table buffer the table-fed route would allocate; fused launches per
+   search; a save/load round trip
    of a 100k-row index (nlists 128, n_sub 32, OPQ: the 1M index's took
    105-124 s of host compression);
    one search with a delete outstanding (the segment route); then the
@@ -493,18 +502,54 @@ def _pq_layout(rng, lens, ns, device):
             torch.as_tensor(lens, dtype=torch.int32, device=device))
 
 
-def _pq_tiles(q, probes, cents, cb, offsets, counts, qt, metric, R=None):
+def _pq_case(q, probes, cents, cb, offsets, counts, qt, metric, R=None):
+    """One case's grouping and tuple inputs: (tile_off, tile_cnt, pos,
+    t_max, (qc, cn, sq, scale, slot_tuple))."""
     from neurondb_tpu_torch.ops.kernels import ivfpq_scan as PQS
     b, npad = probes.shape
     t_max = PQS.tiles_for(b, npad, counts.shape[0], qt)
     toff, tcnt, pos = PQS.group_probes(probes, offsets, counts, qt=qt,
                                        t_max=t_max)
-    lut = PQS.build_luts(q, probes, cents, cb, pos, R, npad=npad, qt=qt,
-                         t_max=t_max, metric=metric)
-    return lut, toff, tcnt
+    ins = PQS.pq_tuple_inputs(q, probes, cents, cb, pos, R, npad=npad, qt=qt,
+                              t_max=t_max, metric=metric)
+    return toff, tcnt, pos, t_max, ins
 
 
-def phase_pq_kernel():
+def _orthogonal(gen, d, device):
+    import torch
+    a = torch.randn((d, d), generator=gen, device=device, dtype=torch.float64)
+    return torch.linalg.qr(a)[0].float()
+
+
+def _pq_ptxas(log):
+    """{(mode, entry): (registers, spill store + load bytes)} of the four
+    PQ kernel instantiations, from ptxas's lines in a build's log."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"pq_scan_kernelILi([01])ELi([01])E", line)
+            cur = (("exact", "packed")[int(m.group(1))],
+                   ("table-fed", "fused")[int(m.group(2))]) if m else None
+            if cur:
+                out[cur] = [None, 0]
+        elif cur and "spill" in line:
+            out[cur][1] = sum(int(n) for n in
+                              re.findall(r"(\d+) bytes spill", line))
+        elif cur and "registers" in line:
+            out[cur][0] = int(re.search(r"Used (\d+) registers", line)[1])
+    return out
+
+
+def _max_bank_load(trials=20000, seed=0):
+    """Mean of the most lookups that fall on one of 32 banks when 32
+    lanes read 32 random table entries: the wavefronts one warp-wide
+    lookup takes."""
+    rng = np.random.default_rng(seed)
+    banks = rng.integers(0, 32, (trials, 32))
+    return float(np.mean([np.bincount(b, minlength=32).max() for b in banks]))
+
+
+def phase_pq_kernel(smi):
     import torch
     from neurondb_tpu_torch.ops.kernels import ivfpq_scan as PQS
     dev = torch.device("cuda")
@@ -512,101 +557,182 @@ def phase_pq_kernel():
     lens = [0, 3, 127, 128, 1024, 1025, 2500, 1, 300, 700]
     pb_small = max(11, (max(lens) - 1).bit_length())
     errs = {"exact": 0.0, "packed": 0.0}
-    identical = True
-    n_cases = 0
+    identical = {"fused": True, "table-fed": True}
+    n_cases = n_empty = 0
     for ns in (16, 32):
         codes_t, cents, cb, offsets, counts = _pq_layout(rng, lens, ns, dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(ns)
+        R = _orthogonal(gen, DIM, dev)
         nl = len(lens)
         for mode in ("exact", "packed"):
             pb = pb_small if mode == "packed" else 0
             for i, k in enumerate((10, 80, 256)):
-                for metric in ("sqeuclidean", "ip"):
+                for metric, rot in (("sqeuclidean", None), ("sqeuclidean", R),
+                                    ("ip", None)):
                     qt = (16, 64, 32)[i]
-                    b = 3 * qt
+                    b = 3 * qt - 5                 # ragged: empty slots
                     q = torch.randn((b, DIM), device=dev)
                     probes = _probes(rng, b, 5, 8, nl, dev)
-                    lut, toff, tcnt = _pq_tiles(q, probes, cents, cb, offsets,
-                                                counts, qt, metric)
+                    toff, tcnt, pos, t_max, ins = _pq_case(
+                        q, probes, cents, cb, offsets, counts, qt, metric,
+                        rot)
+                    n_empty += int((ins[4] < 0).sum())
                     kp = max(8, min(k, PQS.KP_MAX))
-                    kd, ki = PQS.grouped_pq_scan(lut, codes_t, toff, tcnt,
-                                                 kp=kp, qt=qt, pos_bits=pb)
-                    pd, pi = PQS.grouped_pq_scan_plain(
-                        lut, codes_t, toff, tcnt, kp=kp + 1, qt=qt,
-                        pos_bits=pb)
-                    torch.cuda.synchronize()
-                    label = f"pq {mode} n_sub={ns} qt={qt} k={k} {metric}"
-                    err = _compare(kd, ki, pd, pi, label, rtol=PQ_TOL,
-                                   atol=PQ_TOL)
-                    identical &= (torch.equal(kd, pd[..., :kp])
-                                  and torch.equal(ki, pi[..., :kp]))
-                    errs[mode] = max(errs[mode], err)
-                    n_cases += 1
+                    label = (f"pq {mode} n_sub={ns} qt={qt} k={k} {metric}"
+                             f"{' R' if rot is not None else ''}")
+                    fargs = (ins[0], ins[1], cb, ins[2], ins[3], ins[4],
+                             codes_t, toff, tcnt)
+                    lut = PQS.build_luts(q, probes, cents, cb, pos, rot,
+                                         npad=8, qt=qt, t_max=t_max,
+                                         metric=metric)
+                    targs = (lut, codes_t, toff, tcnt)
+                    for entry, kern, plain, args in (
+                            ("fused", PQS.grouped_pq_scan_fused,
+                             PQS.grouped_pq_scan_fused_plain, fargs),
+                            ("table-fed", PQS.grouped_pq_scan,
+                             PQS.grouped_pq_scan_plain, targs)):
+                        kd, ki = kern(*args, kp=kp, qt=qt, pos_bits=pb)
+                        pd, pi = plain(*args, kp=kp + 1, qt=qt, pos_bits=pb)
+                        torch.cuda.synchronize()
+                        err = _compare(kd, ki, pd, pi, f"{label} {entry}",
+                                       rtol=PQ_TOL, atol=PQ_TOL)
+                        identical[entry] &= (torch.equal(kd, pd[..., :kp])
+                                             and torch.equal(ki, pi[..., :kp]))
+                        errs[mode] = max(errs[mode], err)
+                        n_cases += 1
         # a tile set that is all sentinels
         q = torch.randn((32, DIM), device=dev)
         probes = torch.full((32, 4), len(lens), dtype=torch.int32, device=dev)
-        lut, toff, tcnt = _pq_tiles(q, probes, cents, cb, offsets, counts, 16,
-                                    "sqeuclidean")
+        toff, tcnt, pos, t_max, ins = _pq_case(q, probes, cents, cb, offsets,
+                                               counts, 16, "sqeuclidean")
+        lut = PQS.build_luts(q, probes, cents, cb, pos, None, npad=4, qt=16,
+                             t_max=t_max, metric="sqeuclidean")
         for pb in (0, pb_small):
-            kd, ki = PQS.grouped_pq_scan(lut, codes_t, toff, tcnt, kp=10,
-                                         qt=16, pos_bits=pb)
-            torch.cuda.synchronize()
-            if not (bool((ki == -1).all()) and bool((kd == PQS.NEG_FILL).all())):
-                fail("pq: all-sentinel tiles must hold (NEG_FILL, -1) only")
-            n_cases += 1
-    log(f"[kernel] pq: {n_cases} cases match the plain version (rtol = atol "
-        f"= {PQ_TOL}; bit-identical outputs: {identical}); max |kernel - "
-        f"plain| exact {errs['exact']:.3e}, packed {errs['packed']:.3e}")
+            for kd, ki in (
+                    PQS.grouped_pq_scan_fused(
+                        ins[0], ins[1], cb, ins[2], ins[3], ins[4], codes_t,
+                        toff, tcnt, kp=10, qt=16, pos_bits=pb),
+                    PQS.grouped_pq_scan(lut, codes_t, toff, tcnt, kp=10,
+                                        qt=16, pos_bits=pb)):
+                torch.cuda.synchronize()
+                if not (bool((ki == -1).all())
+                        and bool((kd == PQS.NEG_FILL).all())):
+                    fail("pq: all-sentinel tiles must hold (NEG_FILL, -1) "
+                         "only")
+                n_cases += 1
+    log(f"[kernel] pq: {n_cases} cases (fused and table-fed entries; "
+        f"{n_empty} empty slots) match the plain version (rtol = atol = "
+        f"{PQ_TOL}; bit-identical outputs: fused {identical['fused']}, "
+        f"table-fed {identical['table-fed']}); max |kernel - plain| exact "
+        f"{errs['exact']:.3e}, packed {errs['packed']:.3e}")
+    if not all(identical.values()):
+        fail("pq: the kernel must equal its plain version bit for bit")
+    from neurondb_tpu_torch.ops.kernels import _build
+    ptxas = _pq_ptxas(_build.build_log("ivfpq_scan"))
+    for (mode, entry), (regs, spill) in sorted(ptxas.items()):
+        log(f"[kernel] pq ptxas {mode:6s} {entry:9s}: {regs} registers, "
+            f"{spill} bytes spilled")
 
     # IVF-PQ headline shapes: 1M rows in 1024 lists, n_sub 32, 8,192
     # queries, nprobe 8 (the index's pow-2 bucket is 8), k 10 x rerank 8
     ns = 32
+    ds = DIM // ns
     lens = rng.multinomial(N_ROWS, np.full(NLISTS, 1.0 / NLISTS))
     codes_t, cents, cb, offsets, counts = _pq_layout(rng, lens, ns, dev)
     q = torch.randn((PQ_BATCH, DIM), device=dev)
     probes = _probes(rng, PQ_BATCH, 8, 8, NLISTS, dev)
     qt = PQS.auto_qt(PQ_BATCH, 8, NLISTS)
-    lut, toff, tcnt = _pq_tiles(q, probes, cents, cb, offsets, counts, qt,
-                                "sqeuclidean")
+    toff, tcnt, pos, t_max, ins = _pq_case(q, probes, cents, cb, offsets,
+                                           counts, qt, "sqeuclidean")
+    fargs = (ins[0], ins[1], cb, ins[2], ins[3], ins[4], codes_t, toff, tcnt)
     kp = max(8, min(K * 8, PQS.KP_MAX))
     pb = max(11, int(lens.max() - 1).bit_length())
     tuples, rows, uniq = _probe_work(probes, counts, NLISTS)
-    L = ns * 256
-    # bytes: the real tuples' tables and the distinct probed lists' codes
-    # read once, the real tuples' top-kp written once; one f32 add per
-    # table lookup
-    nbytes = tuples * L * 4 + uniq * ns + tuples * kp * 8
-    bound_ms, bound_by = _bound(nbytes, float(rows) * ns, "f32")
+    live_slots = int((ins[4] >= 0).sum())
+    # the fused function's bytes: the real tuples' residual queries and
+    # constants, the codebooks and their norms, the distinct probed lists'
+    # codes read once, the real tuples' top-kp written once; operations:
+    # one f32 add per table lookup, 2 ds + 2 per table entry built
+    lookups, entries = float(rows) * ns, float(tuples) * ns * 256
+    nbytes = (tuples * (DIM * 4 + 4) + (cb.numel() + ins[2].numel()) * 4
+              + uniq * ns + tuples * kp * 8)
+    flops = lookups + entries * (2 * ds + 2)
+    bound_ms, bound_by = _bound(nbytes, flops, "f32")
+    # shared memory: one 32-lane wavefront per SM and clock; a lookup at
+    # random banks takes the most lanes on one bank, a table store one
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    conflict = _max_bank_load()
+    per_ms = sms * mhz * 1e3                       # wavefronts per ms
+    floor_free = (lookups + entries) / 32 / per_ms
+    floor_rand = (lookups * conflict + entries) / 32 / per_ms
+    log(f"[kernel] pq headline: {toff.shape[0]} tiles ({int((tcnt > 0).sum())}"
+        f" live) x qt {qt}, {live_slots} live slots, kp {kp}; bound "
+        f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e9:.4f} GB at "
+        f"{HBM_BPS / 1e12:.2f} TB/s = {nbytes / HBM_BPS * 1e3:.4f} ms; "
+        f"{flops / 1e9:.3f} GFLOP = {lookups / 1e9:.3f} G lookup adds + "
+        f"{entries * (2 * ds + 2) / 1e9:.3f} G table build at the f32 peak "
+        f"= {flops / PEAK_FLOPS['f32'] * 1e3:.4f} ms); shared-memory lookup "
+        f"floor {floor_free:.4f} ms conflict-free, {floor_rand:.4f} ms at "
+        f"{conflict:.3f}-way random-bank conflicts ({lookups / 1e9:.3f} G "
+        f"lookups + {entries / 1e9:.3f} G table stores, {sms} SMs at "
+        f"{mhz:.0f} MHz, one wavefront per SM and clock; information)")
     stats = {}
     for mode in ("exact", "packed"):
         kw = dict(kp=kp, qt=qt, pos_bits=pb if mode == "packed" else 0)
-        kd, ki = PQS.grouped_pq_scan(lut, codes_t, toff, tcnt, **kw)
-        pd, pi = PQS.grouped_pq_scan_plain(lut, codes_t, toff, tcnt,
-                                           **dict(kw, kp=kp + 1))
+        kd, ki = PQS.grouped_pq_scan_fused(*fargs, **kw)
+        pd, pi = PQS.grouped_pq_scan_fused_plain(*fargs, **dict(kw, kp=kp + 1))
         torch.cuda.synchronize()
         err = _compare(kd, ki, pd, pi, f"pq headline {mode}", rtol=PQ_TOL,
                        atol=PQ_TOL)
+        same = torch.equal(kd, pd[..., :kp]) and torch.equal(ki, pi[..., :kp])
+        if not same:
+            fail(f"pq headline {mode}: fused kernel and plain differ")
         del kd, ki, pd, pi
-        ms = _cuda_ms(lambda: PQS.grouped_pq_scan(lut, codes_t, toff, tcnt,
-                                                  **kw), 10)
-        plain_ms = _cuda_ms(lambda: PQS.grouped_pq_scan_plain(
-            lut, codes_t, toff, tcnt, **kw), 2)
-        stats[mode] = {"max_abs_err": max(errs[mode], err), "ms": ms,
-                       "plain_ms": plain_ms, "bound_ms": bound_ms,
-                       "bound_by": bound_by, "library_ms": None}
-        log(f"[kernel] pq {mode:6s} headline: {toff.shape[0]} tiles "
-            f"({int((tcnt > 0).sum())} live) x qt {qt}, kp {kp}, pb "
-            f"{kw['pos_bits']}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-            f"bound {bound_ms:.3f} ms ({bound_by}; {nbytes / 1e9:.3f} GB over "
-            f"{tuples} tuples, {rows * ns / 1e9:.2f} G f32 adds at the f32 "
-            f"peak)")
-    lut_ms = _cuda_ms(lambda: _pq_tiles(q, probes, cents, cb, offsets, counts,
-                                        qt, "sqeuclidean"), 3)
-    log(f"[kernel] pq: grouping + build_luts at the headline shapes "
-        f"{lut_ms:.3f} ms (tables {tuple(lut.shape)} f32, "
-        f"{lut.numel() * 4 / 1e9:.2f} GB)")
+        lut = PQS.build_luts(q, probes, cents, cb, pos, None, npad=8, qt=qt,
+                             t_max=t_max, metric="sqeuclidean")
+
+        def luts():
+            return PQS.build_luts(q, probes, cents, cb, pos, None, npad=8,
+                                  qt=qt, t_max=t_max, metric="sqeuclidean")
+
+        t = _turns_ms({
+            "fused": lambda: PQS.grouped_pq_scan_fused(*fargs, **kw),
+            "table-fed": lambda: PQS.grouped_pq_scan(lut, codes_t, toff,
+                                                     tcnt, **kw),
+            "build_luts": luts,
+            "build_luts + table-fed": lambda: PQS.grouped_pq_scan(
+                luts(), codes_t, toff, tcnt, **kw)}, reps=5, turns=5)
+        del lut
+        torch.cuda.empty_cache()
+        plain_ms = _cuda_ms(lambda: PQS.grouped_pq_scan_fused_plain(
+            *fargs, **kw), 2)
+        qs, warps = PQS.resident_warps(qt, ns, ds, kp, mode == "packed")
+        _, warps_t = PQS.resident_warps(qt, ns, 0, kp, mode == "packed")
+        # the record holds measured numbers only (and the bound); the
+        # lookup floor, a model, and the resident warps stay in the log
+        stats[mode] = {"entry": "fused", "max_abs_err": max(errs[mode], err),
+                       "ms": t["fused"], "plain_ms": plain_ms,
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "library_ms": None,
+                       "build_luts_plus_table_fed_ms":
+                           t["build_luts + table-fed"]}
+        log(f"[kernel] pq {mode:6s} headline ({smi}): fused {t['fused']:.3f} "
+            f"ms; build_luts + table-fed {t['build_luts + table-fed']:.3f} "
+            f"ms (build_luts {t['build_luts']:.3f}, table-fed kernel "
+            f"{t['table-fed']:.3f}), medians of 5 alternating turns of 5 "
+            f"calls; fused plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms; "
+            f"fused / bound {t['fused'] / bound_ms:.1f}x, / conflict-free "
+            f"lookup floor {t['fused'] / floor_free:.1f}x; {qs} slots x 4 "
+            f"warps per block, resident warps per SM: fused {warps}, "
+            f"table-fed {warps_t}; pb {kw['pos_bits']}")
     log("[kernel] pq: no single PyTorch call computes the grouped ADC scan "
         "with its selection; library_ms is null")
-    del lut, codes_t
+    del codes_t, fargs, ins
     torch.cuda.empty_cache()
     return stats
 
@@ -957,8 +1083,35 @@ def phase_ivfpq(x):
     per_mode = {"packed": packed_launches,
                 "exact": PQS.LAUNCHES - packed_launches}
 
-    _profile(f"ivfpq profile nprobe {chosen[0]} rerank {chosen[1]}",
-             lambda: search(*chosen))
+    busy, kernels = _profile(
+        f"ivfpq profile nprobe {chosen[0]} rerank {chosen[1]}",
+        lambda: search(*chosen))
+    pq_ms = sum(e.self_device_time_total for e in kernels
+                if "pq_scan_kernel" in e.key) / 1e3
+    fills = [e for e in kernels
+             if re.search(r"fill|scatter|index_put", e.key, re.I)]
+    log(f"[ivfpq] profiled search: PQ kernel {pq_ms:.3f} ms of {busy:.3f} ms "
+        f"busy ({100 * pq_ms / busy:.0f}%); fill and scatter kernels "
+        f"{sum(e.self_device_time_total for e in fills) / 1e3:.3f} ms in all "
+        f"({', '.join(f'{e.key[:60]} x{e.count}' for e in fills) or 'none'})")
+    # one search's peak device memory beside the [t_max * qt, n_sub * 256]
+    # f32 table buffer the table-fed route allocates at this point
+    npad = 4
+    while npad < chosen[0]:
+        npad *= 2
+    qt = PQS.auto_qt(PQ_BATCH, npad, NLISTS)
+    lut_bytes = PQS.tiles_for(PQ_BATCH, npad, NLISTS, qt) * qt * 32 * 256 * 4
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    search(*chosen, out="device")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - mem0
+    log(f"[ivfpq] one search at nprobe {chosen[0]} rerank {chosen[1]}: peak "
+        f"device memory {peak / 1e6:.1f} MB above the index (the table-fed "
+        f"route's table buffer alone: {lut_bytes / 1e6:.1f} MB)")
+    if peak >= lut_bytes:
+        fail("the IVF-PQ search allocated a table buffer")
 
     _, before = search(*chosen)
     # the round trip on a 100k-row index: the 1M index's took 105-124 s of
@@ -1013,7 +1166,8 @@ def phase_ivfpq(x):
     torch.cuda.empty_cache()
     launches = PQS.LAUNCHES
     log(f"[ivfpq] IVF-PQ kernel launches during the IVF-PQ path: {launches} "
-        f"for {n_grouped} grouped searches (packed {per_mode['packed']} in "
+        f"for {n_grouped} grouped searches ({launches / n_grouped:.2f} fused "
+        f"launches per search; packed {per_mode['packed']} in "
         f"the sweep, exact {per_mode['exact']}); flat kernel: {G.LAUNCHES}; "
         f"flash kernel: {FA.LAUNCHES}")
     if launches != n_grouped or min(per_mode.values()) == 0:
@@ -1507,7 +1661,7 @@ def main(argv):
     smi = phase_device()
     phase_build()
     flat_stats = phase_kernel()
-    pq_stats = phase_pq_kernel()
+    pq_stats = phase_pq_kernel(smi)
     flash_stats = phase_flash_kernel(smi)
     probe_stats = phase_probe_kernel()
     flat_launches = {m: None for m in MODES}

@@ -8,9 +8,11 @@ the codes end in a ``SEG`` = 1024 column tail, subspace-major
 two routes on every device:
 
 - grouped (``_ivfpq_search_grouped``): centroid GEMM, top-nprobe,
-  ``group_probes``, per-tuple ADC tables (``build_luts``), the grouped
-  PQ scan (the CUDA kernel on a CUDA tensor, its plain torch version on a
-  CPU tensor), ``merge_partials``;
+  ``group_probes``, the per-tuple inputs of the ADC tables
+  (``pq_tuple_inputs``: residual queries, constants, slot map), the
+  fused PQ scan ``grouped_pq_scan_fused``, which builds the tables itself
+  (the CUDA kernel on a CUDA tensor, its plain torch version on a CPU
+  tensor; no table buffer), ``merge_partials``;
 - segment (``_ivfpq_search_device``): per probe, 512-row segments decoded
   and scored with a GEMM, masking tombstoned rows. Taken while deletes
   are outstanding, because the grouped scan sees only codes and would

@@ -193,6 +193,58 @@ def test_pq_kernel_matches_plain_bitwise(dev, ns, pos_bits, kp, qt):
     assert torch.equal(kd, pd) and torch.equal(ki, pi)
 
 
+@pytest.mark.parametrize("metric", ["sqeuclidean", "ip"])
+@pytest.mark.parametrize("pos_bits", [0, 12])
+@pytest.mark.parametrize("ns", [16, 32])
+@pytest.mark.parametrize("kp,qt", [(10, 64), (80, 16), (256, 32)])
+def test_pq_fused_kernel_matches_plain_bitwise(dev, ns, pos_bits, kp, qt,
+                                               metric):
+    """The fused kernel builds the same tables as ``adc_tables`` (one
+    rounding per product and sum, in order) and sums the same entries in
+    the same order: identical outputs, ties included, with empty slots
+    (ragged tiles, sentinel probes) and an OPQ rotation for sq-L2."""
+    rng = np.random.default_rng(ns + kp + pos_bits + len(metric))
+    codes_t, offsets, counts = _pq_layout(
+        rng, [0, 3, 127, 128, 1024, 1025, 2500, 300], ns)
+    nl, dim = len(counts), 64
+    b = 3 * qt - 5                                  # ragged last tiles
+    probes = np.argsort(rng.random((b, nl)), axis=1)[:, :6].astype(np.int32)
+    probes[:, 4:] = nl
+    t_max = PQS.tiles_for(b, 6, nl, qt)
+    toff, tcnt, pos = PQS.group_probes(
+        torch.from_numpy(probes).to(dev), torch.from_numpy(offsets).to(dev),
+        torch.from_numpy(counts).to(dev), qt=qt, t_max=t_max)
+    cents = torch.from_numpy(rng.standard_normal((nl, dim)).astype(np.float32))
+    cb = torch.from_numpy(
+        (0.5 * rng.standard_normal((ns, 256, dim // ns))).astype(np.float32))
+    q = torch.from_numpy(rng.standard_normal((b, dim)).astype(np.float32))
+    R = None
+    if metric == "sqeuclidean":
+        R = torch.from_numpy(np.linalg.qr(
+            rng.standard_normal((dim, dim)))[0].astype(np.float32)).to(dev)
+    qc, cn, sq, scale, st = PQS.pq_tuple_inputs(
+        q.to(dev), torch.from_numpy(probes).to(dev), cents.to(dev),
+        cb.to(dev), pos, R, npad=6, qt=qt, t_max=t_max, metric=metric)
+    assert bool((st < 0).any())                     # some slots are empty
+    codes = torch.from_numpy(codes_t).to(dev)
+    args = (qc, cn, cb.to(dev), sq, scale, st, codes, toff, tcnt)
+    before = PQS.LAUNCHES
+    kd, ki = PQS.grouped_pq_scan_fused(*args, kp=kp, qt=qt, pos_bits=pos_bits)
+    pd, pi = PQS.grouped_pq_scan_fused_plain(*args, kp=kp, qt=qt,
+                                             pos_bits=pos_bits)
+    torch.cuda.synchronize()
+    assert PQS.LAUNCHES == before + 1
+    assert torch.equal(kd, pd) and torch.equal(ki, pi)
+
+
+def test_pq_fused_kernel_occupancy(dev):
+    """At the IVF-PQ headline (n_sub 32, kp 80, qt 64), both modes: two
+    blocks of 3 slots x 4 warps share an SM, 24 resident warps."""
+    for packed in (False, True):
+        qs, warps = PQS.resident_warps(64, 32, 4, 80, packed)
+        assert qs == 3 and warps >= 16, (packed, qs, warps)
+
+
 def test_ivfpq_index_on_card_matches_cpu(dev):
     """One IVF-PQ state at 20k rows on the card (kernel) and on the CPU
     (plain scan), exact selection: the same ids to near-ties; the card's

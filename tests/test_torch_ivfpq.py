@@ -140,8 +140,8 @@ def test_delete_takes_the_segment_route(data, monkeypatch):
     victims = np.unique(before[before >= 0])[:40]
     assert t.delete(victims) == j.delete(victims) == len(victims)
     calls = []
-    monkeypatch.setattr(PQS, "grouped_pq_scan",
-                        lambda *a, **k: calls.append(1))
+    for entry in ("grouped_pq_scan", "grouped_pq_scan_fused"):
+        monkeypatch.setattr(PQS, entry, lambda *a, **k: calls.append(1))
     for rerank in (0, 4):
         jd, ji = j.search(q, k=10, nprobe=4, rerank=rerank)
         td, ti = t.search(q, k=10, nprobe=4, rerank=rerank)
