@@ -10,9 +10,10 @@
 //
 // A list is kp entries in shared memory, sorted ascending, owned by one
 // warp. Two ways to fill it: `offer` inserts one candidate at a time
-// (the flat and probe kernels); `offer_batch` gathers the candidates that
-// beat the list's last entry in a per-warp buffer and merges the sorted
-// buffer into the list by rank when it fills (the PQ kernel).
+// (the flat kernel); `offer_batch` gathers the candidates that beat the
+// list's last entry in a per-warp buffer and merges the sorted buffer into
+// the list by rank when it fills (the PQ kernel, and the probe kernel at
+// kp > 16).
 //
 // The key arithmetic wraps as XLA's int32 arithmetic does: the rounding
 // add runs in uint32 (signed overflow is undefined in C++), and `>> 31`

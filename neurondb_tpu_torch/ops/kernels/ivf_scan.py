@@ -5,7 +5,11 @@ Counterpart of ``neurondb_tpu/ops/pallas/ivf_scan.py``:
   scan    ``probe_scan`` computes every (query, probe rank) tuple's top-kp
           over its list: on a CUDA tensor by the hand-written kernel
           ``csrc/ivf_probe_scan.cu``, on a CPU tensor by
-          ``probe_scan_plain``, the same function in plain torch.
+          ``probe_scan_plain``, the same function in plain torch. The
+          kernel reads each list once for every item of up to 32 tuples
+          that probe it: ``work_table`` sorts the tuples by (offset,
+          count) on the card, ``work_items`` states how the kernel's
+          blocks cut the sorted table into items.
   merge   ``merge_probes`` takes the top-k across probe ranks, as the JAX
           package does outside its kernel, in XLA.
 
@@ -49,8 +53,8 @@ from neurondb_tpu_torch.ops.kernels.ivf_scan_grouped import (
 )
 
 SEG = 512         # rows per segment, and the per-probe kp cap
-WARPS_MAX = 8     # (query, probe) tuples one kernel block serves, a warp each
-GRID_Y_MAX = 65535  # probe ranks: the launch grid's second index
+TILES = (4, 8, 16, 32)  # the kernel's query tiles: tuples one item holds
+TUPLES_MAX = 2**31 - 1  # B * nprobe: the work table's int32 positions
 
 LAUNCHES = 0      # kernel launches by probe_scan on CUDA tensors
 
@@ -114,30 +118,73 @@ def probe_scan_plain(q: torch.Tensor, vecs: torch.Tensor,
     return out_d, out_i
 
 
+def work_table(probes_off: torch.Tensor, probes_cnt: torch.Tensor, *,
+               n_rows: int, max_segs: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's work table, on the tensors' device, with no host
+    synchronisation: each tuple t = b * nprobe + p gets the key
+    ``off << 32 | n``, n its count cut to ``max_segs * SEG`` and to the
+    store's end; returns (keys, order) [B * nprobe] int64, the keys sorted
+    stably and each sorted position's tuple. A key below 0 (off < 0) or
+    with n == 0 reads nothing. Two lists that share an offset (an empty
+    list starts where the next one does) or one list probed with two
+    counts keep apart keys. Six torch calls: the route at small batches
+    waits on the host."""
+    off = probes_off.reshape(-1).long()
+    n = torch.minimum(probes_cnt.reshape(-1), n_rows - off).clamp_(
+        0, max(0, max_segs) * SEG)
+    return torch.sort(torch.add(n, off, alpha=1 << 32), stable=True)
+
+
+def work_items(keys: torch.Tensor, tile: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's items, as its blocks find them: block i takes the
+    sorted positions [i * tile, (i + 1) * tile), and an item is a run of
+    equal keys inside one block's positions. Returns the items' (start,
+    stop) positions, in order (tests and measurement; the kernel finds
+    them itself)."""
+    T = keys.numel()
+    pos = torch.arange(T, device=keys.device)
+    first = pos % tile == 0
+    first[1:] |= keys[1:] != keys[:-1]
+    start = pos[first]
+    stop = torch.cat([start[1:], start.new_tensor([T])])
+    return start, stop
+
+
+def tile_for(n_tuples: int, widest: int, n_sm: int) -> int:
+    """The launch's query tile, which is also each block's share of the
+    sorted tuples: ``widest`` (``pick_tile``), halved (not below 4) while
+    the grid would hold fewer than two blocks per SM."""
+    t = widest
+    while t > 4 and -(-n_tuples // t) < 2 * n_sm:
+        t //= 2
+    return t
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load_library("ivf_probe_scan")
     f = lib.ivf_probe_scan
-    f.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
-                  + [ctypes.c_longlong] + [ctypes.c_int] * 6
+    f.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
                   + [ctypes.c_void_p])
     f.restype = ctypes.c_int
-    g = lib.ivf_probe_scan_smem_bytes
-    g.argtypes = [ctypes.c_int] * 3
-    g.restype = ctypes.c_longlong
+    for name, rt in (("ivf_probe_scan_smem_bytes", ctypes.c_longlong),
+                     ("ivf_probe_scan_occupancy", ctypes.c_int)):
+        g = getattr(lib, name)
+        g.argtypes = [ctypes.c_int] * 4
+        g.restype = rt
     return lib
 
 
-def _pick_warps(lib: ctypes.CDLL, D: int, kp: int) -> int:
-    """Tuples (warps) per kernel block: 8, halved while the block's
-    shared memory (a query and a top-kp list per warp) exceeds 227 KB."""
-    warps = WARPS_MAX
-    while warps > 1 and lib.ivf_probe_scan_smem_bytes(warps, D, kp) > SMEM_MAX:
-        warps //= 2
-    if lib.ivf_probe_scan_smem_bytes(warps, D, kp) > SMEM_MAX:
-        raise ValueError(f"probe scan: D={D}, kp={kp} do not fit one warp's "
-                         f"query and top-kp in {SMEM_MAX} bytes of shared "
-                         f"memory")
-    return warps
+def pick_tile(lib: ctypes.CDLL, D: int, kp: int, bf16: bool) -> int:
+    """The widest query tile of ``TILES`` whose shared memory (ring,
+    queries, products; for kp > 16 the top-kp lists and buffers) fits
+    227 KB."""
+    for tq in sorted(TILES, reverse=True):
+        if lib.ivf_probe_scan_smem_bytes(tq, D, kp, int(bf16)) <= SMEM_MAX:
+            return tq
+    raise ValueError(f"probe scan: D={D}, kp={kp} do not fit a {min(TILES)}"
+                     f"-query tile in {SMEM_MAX} bytes of shared memory")
 
 
 def _probe_scan_cuda(q, vecs, probes_off, probes_cnt, *, kp, max_segs,
@@ -157,27 +204,27 @@ def _probe_scan_cuda(q, vecs, probes_off, probes_cnt, *, kp, max_segs,
             raise ValueError(f"{name} must be int32 [B, nprobe]")
     if not 1 <= kp <= SEG:
         raise ValueError(f"kp must lie in [1, {SEG}]")
-    if nprobe > GRID_Y_MAX:
-        raise ValueError(f"nprobe must be at most {GRID_Y_MAX}")
-    q, vecs, probes_off, probes_cnt = (
-        t.contiguous() for t in (q, vecs, probes_off, probes_cnt))
+    if B * nprobe > TUPLES_MAX:
+        raise ValueError(f"B * nprobe must be at most {TUPLES_MAX}")
+    q, vecs = q.contiguous(), vecs.contiguous()
     out_d = torch.empty((nprobe, B, kp), dtype=torch.float32, device=q.device)
     out_i = torch.empty((nprobe, B, kp), dtype=torch.int32, device=q.device)
     if B == 0 or nprobe == 0:
         return out_d, out_i
     lib = _lib()
-    warps = _pick_warps(lib, D, kp)
-    # 16-byte row loads: 8 elements at a time where every row start is
-    # 16-byte aligned
+    bf16 = vecs.dtype == torch.bfloat16
+    n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
+    tile = tile_for(B * nprobe, pick_tile(lib, D, kp, bf16), n_sm)
+    keys, order = work_table(probes_off, probes_cnt, n_rows=vecs.shape[0],
+                             max_segs=max_segs)
+    # 16-byte cp.async copies where every row start is 16-byte aligned
     vec8 = int(D % 8 == 0 and vecs.data_ptr() % 16 == 0)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.ivf_probe_scan(
-            q.data_ptr(), vecs.data_ptr(), probes_off.data_ptr(),
-            probes_cnt.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
-            B, nprobe, D, vecs.shape[0], kp, max(0, max_segs),
-            int(metric == "ip"), int(vecs.dtype == torch.bfloat16), vec8,
-            warps, stream)
+            q.data_ptr(), vecs.data_ptr(), keys.data_ptr(), order.data_ptr(),
+            out_d.data_ptr(), out_i.data_ptr(), B, nprobe, D, kp,
+            int(metric == "ip"), int(bf16), vec8, tile, stream)
     if err != 0:
         raise RuntimeError(f"ivf_probe_scan launch failed: CUDA error {err}")
     LAUNCHES += 1

@@ -445,3 +445,61 @@ def test_probe_route_on_card_matches_cpu(dev):
         get_config().reset("ivf_kernel")
     assert float((gi == ci).mean()) >= 0.99
     np.testing.assert_allclose(gd, cd, rtol=RTOL, atol=ATOL)
+
+
+PROBE_LENS_EMPTY = [0, 0, 40, 0, 700, 0, 0, 3, 1100]
+
+
+@pytest.mark.parametrize("store", ["bfloat16", "float32"])
+@pytest.mark.parametrize("metric", ["sqeuclidean", "ip"])
+@pytest.mark.parametrize("k", [10, 512])
+@pytest.mark.parametrize("b", [70, 4500])
+def test_probe_kernel_hot_and_empty_lists(dev, store, metric, k, b):
+    """Hot lists: all b queries probe the same 3 lists, so each list's
+    tuples split into several items (b 70: query tiles of 4 and 8, b 4500:
+    of 16 and 32); adjacent empty lists share their offset with the next
+    list. Small integers make every product and sum exact, so the kernel
+    equals the plain version bit for bit, ties (many here) going to the
+    smaller row."""
+    rng = np.random.default_rng(k)
+    vecs, offsets, counts = _layout(rng, PROBE_LENS_EMPTY, 128)
+    vecs = np.round(vecs * 1.5).clip(-4, 4).astype(np.float32)
+    vd = torch.from_numpy(vecs).to(dev, getattr(torch, store))
+    q = torch.from_numpy(rng.integers(-3, 4, (b, 128)).astype(np.float32))
+    q = q.to(dev)
+    hot = np.stack([rng.permutation([2, 4, 8]) for _ in range(b)])
+    spread = np.argsort(rng.random((b, len(PROBE_LENS_EMPTY))), axis=1)[:, :4]
+    kp = PS.kp_for(k)
+    for lists in (hot, spread):
+        poff = torch.from_numpy(offsets[lists]).to(dev)
+        pcnt = torch.from_numpy(counts[lists]).to(dev)
+        kw = dict(kp=kp, max_segs=4, metric=metric)
+        kd, ki = PS.probe_scan(q, vd, poff, pcnt, **kw)
+        pd, pi = PS.probe_scan_plain(q, vd, poff, pcnt, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(kd, pd) and torch.equal(ki, pi)
+
+
+def test_probe_work_table_on_card_matches_cpu(dev):
+    """The work table built on the card is the CPU's, and neither its
+    build nor a probe scan makes a host synchronisation."""
+    rng = np.random.default_rng(2)
+    vecs, offsets, counts = _layout(rng, PROBE_LENS, 16)
+    lists = np.argsort(rng.random((300, len(PROBE_LENS))), axis=1)[:, :5]
+    poff, pcnt = torch.from_numpy(offsets[lists]), torch.from_numpy(
+        counts[lists])
+    want = PS.work_table(poff, pcnt, n_rows=vecs.shape[0], max_segs=2)
+    poff, pcnt = poff.to(dev), pcnt.to(dev)
+    vd = torch.from_numpy(vecs).to(dev, torch.bfloat16)
+    q = torch.from_numpy(rng.standard_normal((300, 16)).astype(np.float32))
+    q = q.to(dev)
+    PS.probe_scan(q, vd, poff, pcnt, kp=10, max_segs=2)   # built and loaded
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = PS.work_table(poff, pcnt, n_rows=vecs.shape[0], max_segs=2)
+        PS.probe_scan(q, vd, poff, pcnt, kp=10, max_segs=2)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
