@@ -12,13 +12,20 @@ each print their own lines:
 2. build: compiles the CUDA kernels from ``neurondb_tpu_torch/csrc``, one
    nvcc per source, all started together; prints ptxas registers and
    spills, kept beside each library, so a cached build prints them too;
-3. flat kernel against plain: ``grouped_probe_scan``'s CUDA kernel
+3. flat kernel against plain: the ptxas registers and spills of each
+   instantiation of ``csrc/ivf_scan_grouped.cu`` (bf16 store, tensor
+   cores: a spill fails the run) and ``csrc/ivf_scan_grouped_f32.cu`` (f32
+   store, FMA: its blockmin spill is printed, an open item of the
+   roadmap); ``grouped_probe_scan``'s CUDA kernel
    against its plain torch version on the same card tensors, on a ragged
    bf16 CSR layout (list lengths 0, 3, 31, 1024, 1025, 2500, ...), for qt
    in {16, 32, 64}, k in {10, 100, 1024}, sqeuclidean and ip, in the
    exact, packed and blockmin selection modes, and an all-sentinel tile
-   set; then each mode timed at the headline shapes (16,384 queries,
-   nprobe 8, nlists 1024, 1M rows) beside its bound;
+   set; bit for bit on integer-valued rows and queries (every mode, kp
+   10, 100, 1024 at D 128, 200, 13; kp 10 and 1024 at D 384, 768, 1024,
+   which stage 128-dim slabs); then each mode timed at the headline
+   shapes (16,384 queries, nprobe 8, nlists 1024, 1M rows) beside its
+   bound;
 4. PQ kernel against plain: both entries of ``csrc/ivfpq_scan.cu``, the
    fused one (``grouped_pq_scan_fused``: tables built in shared memory,
    live slots only) and the table-fed one (``grouped_pq_scan``), against
@@ -91,7 +98,8 @@ nprobe 8 and 1,024 x nprobe 4 on the 1M-row layout: the wrapper, the
 kernel alone and the work table in turns, beside the bound and the rows
 the kernel reads. After 5, on its index, the probe route
 (``ivf_kernel="probe"``): recall over NPROBES, QPS beside the grouped
-route at batch 16,384 and 1,024, launches, a profile at both batches.
+route at batch 16,384 and 1,024, launches, a profile at both batches and
+one of the grouped route at batch 1,024.
 
 Any failed check ends the run with a non-zero exit. The line before the
 last is the kernels' JSON record; the last line is
@@ -121,8 +129,8 @@ RECALL_BAR = 0.95
 PQ_BATCH, PQ_NQ = 8192, 1024
 PQ_SWEEP = ((8, 8), (8, 16), (16, 16), (16, 24))
 SAVE_ROWS = 100_000       # the IVF-PQ save/load round trip's index
-KERNELS = ("ivf_scan_grouped", "ivfpq_scan", "flash_attention",
-           "ivf_probe_scan")
+KERNELS = ("ivf_scan_grouped", "ivf_scan_grouped_f32", "ivfpq_scan",
+           "flash_attention", "ivf_probe_scan")
 # flash kernel vs plain: f32 sums in another order; with bf16 products a
 # p within f32 noise of a rounding boundary may round one bf16 step
 # (2^-8) apart, moving an output by up to 2^-8 * (p / l) * |v|
@@ -219,7 +227,8 @@ def phase_build():
     for name in KERNELS:
         for line in _build.build_log(name).splitlines():
             kernel = re.search(
-                r"((?:grouped|pq|probe)_scan_kernel|flash_(?:bf16|f32)_kernel)"
+                r"((?:grouped|pq|probe)_scan(?:_mma)?_kernel|"
+                r"flash_(?:bf16|f32)_kernel)"
                 r"I(.*?)EEv", line)
             if kernel and "Function properties" in line:
                 # the kernel's template arguments: store type, mode
@@ -397,11 +406,94 @@ MODES = {"exact": (False, False), "packed": (True, False),
          "blockmin": (True, True)}
 
 
+def _grouped_ptxas(log):
+    """{(store, mode, lists): (registers, spill store + load bytes)} of the
+    grouped scan's instantiations, from ptxas's lines in its build log:
+    bf16, the tensor-core kernel (lists in registers or in shared memory);
+    f32, the FMA kernel."""
+    names = list(MODES)
+    out, cur = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"grouped_scan_mma_kernelILi(\d)ELb([01])E", line)
+            f = re.search(r"grouped_scan_kernelIfLi(\d)E", line)
+            cur = (("bf16", names[int(m[1])],
+                    "registers" if m[2] == "1" else "shared") if m else
+                   ("f32", names[int(f[1])], "shared") if f else None)
+            if cur:
+                out[cur] = [None, 0]
+        elif cur and "spill" in line:
+            out[cur][1] = sum(int(n) for n in
+                              re.findall(r"(\d+) bytes spill", line))
+        elif cur and "registers" in line:
+            out[cur][0] = int(re.search(r"Used (\d+) registers", line)[1])
+    return out
+
+
+def _integer_cases(rng, dev):
+    """Integer-valued bf16 rows and queries: every product and sum is
+    exact on the tensor cores and in the plain version, so the kernel must
+    equal ``grouped_scan_plain`` bit for bit, ties (many) included: each
+    mode at kp 10, 100, 1024 and D 128, 200, 13 (element copies, D padded
+    to 16), and at kp 10 and 1024 and D 384, 768, 1024 (rows staged in
+    128-dim slabs, fewer queries a block), both metrics."""
+    import torch
+    from neurondb_tpu_torch.ops.kernels import ivf_scan_grouped as G
+    lens = [0, 3, 31, 1024, 1025, 2500, 700, 64, 1, 333]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(rng.integers(1 << 31)))
+    n = 0
+    narrow, wide = ((10, 64), (100, 32), (1024, 16)), ((10, 64), (1024, 16))
+    for dim, kps in ((DIM, narrow), (200, narrow), (13, narrow), (384, wide),
+                     (768, wide), (1024, wide)):
+        vecs, offsets, counts = _layout(rng, lens, dim, torch.float32, dev)
+        vecs = (vecs * 1.5).round().clamp(-4, 4).to(torch.bfloat16)
+        for mode, (packed, bmin) in MODES.items():
+            for kp, qt in kps:
+                for metric in ("sqeuclidean", "ip"):
+                    q = torch.randint(-3, 4, (3 * qt, dim), device=dev,
+                                      generator=gen).float()
+                    probes = _probes(rng, 3 * qt, 4, 6, len(lens), dev)
+                    qpad, toff, tcnt, _ = _tiles(q, probes, offsets, counts,
+                                                 qt)
+                    kw = dict(kp=kp, qt=qt, metric=metric,
+                              pos_bits=12 if packed else 0, block_min=bmin)
+                    kd, ki = G.grouped_probe_scan(qpad, vecs, toff, tcnt, **kw)
+                    pd, pi = G.grouped_scan_plain(qpad, vecs, toff, tcnt, **kw)
+                    torch.cuda.synchronize()
+                    if not (torch.equal(kd, pd) and torch.equal(ki, pi)):
+                        bad = int(((kd != pd) | (ki != pi)).sum())
+                        fail(f"integer data, {mode} kp={kp} D={dim} {metric}: "
+                             f"{bad} entries differ from the plain version")
+                    n += 1
+    return n
+
+
 def phase_kernel():
     import torch
+    from neurondb_tpu_torch.ops.kernels import _build
     from neurondb_tpu_torch.ops.kernels import ivf_scan_grouped as G
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
+    ptxas = _grouped_ptxas(_build.build_log("ivf_scan_grouped") +
+                           _build.build_log("ivf_scan_grouped_f32"))
+    if len(ptxas) != 9:
+        fail(f"flat: ptxas lines for {len(ptxas)} of 9 kernels in the log")
+    for (store, mode, lists), (regs, spill) in sorted(ptxas.items()):
+        log(f"[kernel] ptxas flat {store} {mode}, lists in {lists}: {regs} "
+            f"registers, {spill} bytes spilled")
+        if store == "bf16" and spill:
+            fail(f"the tensor-core kernel ({mode}, lists in {lists}) spills "
+                 f"{spill} bytes")
+    lib = G._lib()
+    for dim in (DIM, 1024):
+        for kp in (10, 100, 1024):
+            for mode in range(3):
+                qs = G._pick_qs(lib, 64, dim, kp, mode, True)
+                log(f"[kernel] flat bf16 {list(MODES)[mode]} kp {kp}: {qs} "
+                    f"queries a block, "
+                    f"{lib.ivf_grouped_scan_smem_bytes(qs, dim, kp, mode, 1)} "
+                    f"B of shared memory (D {dim})")
     lens = [0, 3, 31, 1024, 1025, 2500, 700, 64, 1, 333]
     vecs, offsets, counts = _layout(rng, lens, DIM, torch.bfloat16, dev)
     pb_small = max(11, (max(lens) - 1).bit_length())
@@ -445,6 +537,10 @@ def phase_kernel():
         f"values rtol {SEL_RTOL} + 2*2^(pb-24), rows carry their distances); "
         f"max |kernel - plain| exact {errs['exact']:.3e}, packed "
         f"{errs['packed']:.3e}, blockmin {errs['blockmin']:.3e}")
+    n_int = _integer_cases(rng, dev)
+    log(f"[kernel] flat: {n_int} integer-data cases (every mode, kp 10, "
+        f"100, 1024 at D {DIM}, 200 and 13; kp 10 and 1024 at D 384, 768 "
+        f"and 1024; both metrics) equal the plain version bit for bit")
 
     # headline shapes: 1M bf16 rows in 1024 lists, 16,384 queries, nprobe 8
     # padded to 16 (the index's bucket), k = 10
@@ -958,6 +1054,8 @@ def phase_probe_route(index, qb, chosen, gt, exact):
         for batch in (BATCH, 1024):
             _profile(f"probe route profile nprobe {chosen} batch {batch}",
                      lambda: search("probe", qb[:batch], chosen))
+        _profile(f"grouped route profile nprobe {chosen} batch 1024",
+                 lambda: search("grouped", qb[:1024], chosen))
         launches = PS.LAUNCHES
         g_launches = G.LAUNCHES
     finally:

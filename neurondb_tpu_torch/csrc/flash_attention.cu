@@ -102,7 +102,14 @@
 #include <cuda_bf16.h>
 #include <cstdint>
 
+#include "hopper.cuh"
+
 namespace {
+
+using ndb::ldmatrix_x4;
+using ndb::ldmatrix_x4_trans;
+using ndb::mma_bf16;
+using ndb::pack_bf16;
 
 constexpr float kNegInf = -1e30f;       // the masked logit, as on the TPU
 constexpr int kThreads = 8 * 32;        // 8 warps x 16 query rows
@@ -121,40 +128,6 @@ struct Args {
   long long qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss;
   float scale;
 };
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);   // .x low, .y high
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// D += A B: A 16x16 bf16 (row), B 16x8 bf16 (col), D 16x8 f32.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 bf16 matrices; lanes 8i .. 8i + 7 give the row addresses of
-// matrix i, and r[i] is this lane's pair of it (.trans: of its transpose).
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            const __nv_bfloat16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const __nv_bfloat16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
 
 // x = hi + lo: hi its top 19 bits (a TF32 value), lo = x - hi (exact).
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {

@@ -90,6 +90,7 @@
 #include <climits>
 #include <cstdint>
 
+#include "hopper.cuh"
 #include "topk_select.cuh"
 
 // Stage cuts for measurement only (scripts/probe_ab.py --stages builds
@@ -106,7 +107,8 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kChunk = 64;              // list rows per ring stage
 constexpr int kSeg = 512;               // the per-probe kp cap
 constexpr int kMaxTile = 32;            // queries per block at most
-constexpr int kRegK = 16;               // kp at most for lists in registers
+using ndb::kRegK;                       // kp at most for lists in registers
+using RegList = ndb::RegList<float, true>;
 
 // Query-tile geometry. Products: a lane holds kR rows x kQ queries, the
 // rows 32 apart; the warps split the chunk's rows in kWR blocks of 32 and
@@ -224,69 +226,6 @@ __device__ __forceinline__ float widen1(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// This thread's pieces of a chunk: the piece (row r0, column c0) first,
-// then every kThreads-th, each step dr rows and dc columns on (no division
-// in the copy loop). A piece is 16 bytes (vec8) or one element.
-struct Copier {
-  int per_row, r0, c0, dr, dc;
-};
-
-__device__ __forceinline__ Copier copier(int per_row) {
-  Copier k;
-  k.per_row = per_row;
-  k.r0 = threadIdx.x / per_row;
-  k.c0 = threadIdx.x - k.r0 * per_row;
-  k.dr = kThreads / per_row;
-  k.dc = kThreads - k.dr * per_row;
-  return k;
-}
-
-// Rows [c0, min(c0 + kChunk, n)) of the list at `src` into a ring stage:
-// 16-byte cp.async copies (vec8), else element by element.
-template <typename T>
-__device__ __forceinline__ void stage_chunk(unsigned char* dst, const T* src,
-                                           int c0, int n, int D, int x_ld,
-                                           bool vec8, const Copier& k) {
-  const int rows = min(kChunk, n - c0);
-  const T* s = src + static_cast<long long>(c0) * D;
-  int r = k.r0, c = k.c0;
-  if (vec8) {
-    const unsigned char* sb = reinterpret_cast<const unsigned char*>(s);
-    for (; r < rows; r += k.dr, c += k.dc) {
-      if (c >= k.per_row) {
-        c -= k.per_row;
-        ++r;
-        if (r >= rows) break;
-      }
-      cp_async16(dst + r * x_ld + c * 16,
-                 sb + (static_cast<long long>(r) * k.per_row + c) * 16);
-    }
-  } else {
-    for (; r < rows; r += k.dr, c += k.dc) {
-      if (c >= k.per_row) {
-        c -= k.per_row;
-        ++r;
-        if (r >= rows) break;
-      }
-      reinterpret_cast<T*>(dst + r * x_ld)[c] = s[static_cast<long long>(r) * D + c];
-    }
-  }
-}
-
 // The products of one staged chunk: this warp's rows x queries into
 // tile[query][row]; with l2, |x|^2 of each row into xsq, once: by the
 // warps of query group i < kR, for their lanes' i-th rows. A warp whose
@@ -376,60 +315,12 @@ __device__ __forceinline__ float dist_of(const Smem& s, int buf, int qi,
 
 // ---- selection in registers (kp <= kRegK) --------------------------------
 //
-// A query's 32 / kQW lanes each keep the kRegK best (distance, row) pairs of
-// the rows they score, sorted in registers. A lane scores rows sub,
-// sub + 32 / kQW, ... of each chunk, so its rows only grow: on equal
-// distance an entry already in its list goes first, and distances alone
-// place a candidate. A candidate enters only if it goes before tau, the
-// least over the query's lanes of their kp-th entries at the chunk's start:
-// tau's lane holds kp pairs not after tau, so nothing after it can be in
-// the query's top-kp, and every pair of the top-kp stays in its lane's
-// list. The lists are merged at the end of the item, kp times the least
-// head over the query's lanes.
-
-struct RegList {
-  float d[kRegK];
-  int r[kRegK];
-};
-
-__device__ __forceinline__ void reg_fill(RegList& L) {
-#pragma unroll
-  for (int i = 0; i < kRegK; ++i) {
-    L.d[i] = FLT_MAX;
-    L.r[i] = -1;
-  }
-}
-
-// the candidate into the sorted list; the last entry drops out
-__device__ __forceinline__ void reg_insert(RegList& L, float d, int r) {
-#pragma unroll
-  for (int i = kRegK - 1; i > 0; --i) {
-    const bool up = d < L.d[i - 1];     // entry i takes entry i - 1
-    const bool here = d < L.d[i];
-    L.d[i] = up ? L.d[i - 1] : (here ? d : L.d[i]);
-    L.r[i] = up ? L.r[i - 1] : (here ? r : L.r[i]);
-  }
-  if (d < L.d[0]) {
-    L.d[0] = d;
-    L.r[0] = r;
-  }
-}
-
-// the least (d, r) over the lane groups of `width` lanes (xor butterfly;
-// equal pairs, only fills, may leave lanes with different `who`)
-__device__ __forceinline__ void group_min(float& d, int& r, int& who,
-                                          int width) {
-  for (int o = width >> 1; o > 0; o >>= 1) {
-    const float od = __shfl_xor_sync(ndb::kFull, d, o);
-    const int orr = __shfl_xor_sync(ndb::kFull, r, o);
-    const int ow = __shfl_xor_sync(ndb::kFull, who, o);
-    if (ndb::before<true>(od, orr, d, r)) {
-      d = od;
-      r = orr;
-      who = ow;
-    }
-  }
-}
+// A query's 32 / kQW lanes each keep a topk_select.cuh `RegList` of the
+// rows they score. A lane scores rows sub, sub + 32 / kQW, ... of each
+// chunk, so its rows only grow and distances alone place a candidate. tau
+// is the least over the query's lanes of their kp-th entries at the
+// chunk's start. The lists are merged at the end of the item, kp times the
+// least head over the query's lanes.
 
 template <int W>
 __device__ __forceinline__ void reg_select(const Smem& s, int buf,
@@ -439,16 +330,11 @@ __device__ __forceinline__ void reg_select(const Smem& s, int buf,
   constexpr int kLanes = 32 / Tile<W>::kQW;          // lanes per query
   const int qi = warp * Tile<W>::kQW + lane / kLanes;
   const int sub = lane % kLanes;
-  float td = L.d[0];
-  int tr = L.r[0];
-#pragma unroll
-  for (int i = 1; i < kRegK; ++i)
-    if (i == kp - 1) {
-      td = L.d[i];
-      tr = L.r[i];
-    }
+  float td;
+  int tr;
+  ndb::reg_at(L, kp - 1, td, tr);
   int who = lane;
-  group_min(td, tr, who, kLanes);
+  ndb::group_min<true>(td, tr, who, kLanes);
   // the lane's rows that go before tau, queued in shared memory (slot i of
   // lane t at i * kThreads + t), then inserted in row order: the warp runs
   // the insertion as often as its longest queue, not once per row that
@@ -471,8 +357,8 @@ __device__ __forceinline__ void reg_select(const Smem& s, int buf,
   }
   const int most = __reduce_max_sync(ndb::kFull, nc);
   for (int i = 0; i < most; ++i)
-    if (i < nc) reg_insert(L, cd[i * kThreads + threadIdx.x],
-                           cr[i * kThreads + threadIdx.x]);
+    if (i < nc) ndb::reg_insert(L, cd[i * kThreads + threadIdx.x],
+                                cr[i * kThreads + threadIdx.x]);
 }
 
 // the query's lists merged: its kp least pairs, ascending, to o_d / o_i
@@ -490,18 +376,10 @@ __device__ __forceinline__ void reg_out(RegList& L, int kp, int nq, int warp,
     o = (p * B + b) * kp;
   }
   for (int e = 0; e < kp; ++e) {
-    float hd = L.d[0];
+    float hd = L.k[0];
     int hr = L.r[0], who = lane;
-    group_min(hd, hr, who, kLanes);
-    if (who == lane) {                                // pop the head
-#pragma unroll
-      for (int i = 0; i < kRegK - 1; ++i) {
-        L.d[i] = L.d[i + 1];
-        L.r[i] = L.r[i + 1];
-      }
-      L.d[kRegK - 1] = FLT_MAX;
-      L.r[kRegK - 1] = -1;
-    }
+    ndb::group_min<true>(hd, hr, who, kLanes);
+    if (who == lane) ndb::reg_pop(L, FLT_MAX);        // pop the head
     if (qi < nq && lane % kLanes == e % kLanes) {
       out_d[o + e] = hd;
       out_i[o + e] = hr;
@@ -555,15 +433,16 @@ __device__ __forceinline__ void scan_item(const Smem& s, const Layout& L,
   constexpr int kStages = stages_for(sizeof(T));
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const T* src = vecs + static_cast<long long>(off) * D;
-  const Copier cp = copier(vec8 ? D * static_cast<int>(sizeof(T)) / 16 : D);
+  const ndb::Copier cp =
+      ndb::copier<kThreads>(vec8 ? D * static_cast<int>(sizeof(T)) / 16 : D);
   const int nch = (n + kChunk - 1) / kChunk;
   // the ring's first stages start filling before the queries are staged
 #pragma unroll
   for (int c = 0; c < kStages - 1; ++c) {
     if (c < nch)
-      stage_chunk<T>(s.ring + c * kChunk * L.x_ld, src, c * kChunk, n, D,
-                     L.x_ld, vec8, cp);
-    cp_async_commit();
+      ndb::stage_chunk<kChunk, T>(s.ring + c * kChunk * L.x_ld, src,
+                                  c * kChunk, n, D, L.x_ld, vec8, cp);
+    ndb::cp_async_commit();
   }
   // queries, |q|^2 (the first kernel's lane-strided partials and xor
   // butterfly), empty lists
@@ -592,7 +471,7 @@ __device__ __forceinline__ void scan_item(const Smem& s, const Layout& L,
     }
   }
   RegList regs;
-  if constexpr (kReg) reg_fill(regs);
+  if constexpr (kReg) ndb::reg_fill(regs, FLT_MAX);
   // chunk c's products go to buffer c & 1 while the warp selects from
   // chunk c - 1's: one barrier a chunk, and the warps of a block drift
   // apart between barriers, so some multiply while others select
@@ -605,14 +484,15 @@ __device__ __forceinline__ void scan_item(const Smem& s, const Layout& L,
       chunk_select<W>(s, c & 1, kp, c * kChunk, n, off, nq, ip, warp, lane);
   };
   for (int c = 0; c < nch; ++c) {
-    cp_async_wait<kStages - 2>();                     // chunk c has landed
+    ndb::cp_async_wait<kStages - 2>();                // chunk c has landed
     // ... for every thread; chunk c - 1's products and norms are complete,
     // and chunk c - 2's buffers are read by all
     __syncthreads();
     if (c + kStages - 1 < nch)
-      stage_chunk<T>(s.ring + ((c + kStages - 1) % kStages) * kChunk * L.x_ld,
-                     src, (c + kStages - 1) * kChunk, n, D, L.x_ld, vec8, cp);
-    cp_async_commit();
+      ndb::stage_chunk<kChunk, T>(
+          s.ring + ((c + kStages - 1) % kStages) * kChunk * L.x_ld, src,
+          (c + kStages - 1) * kChunk, n, D, L.x_ld, vec8, cp);
+    ndb::cp_async_commit();
     if (NDB_PROBE_CUT < 2)
       chunk_dots<W, T>(s.ring + (c % kStages) * kChunk * L.x_ld, L.x_ld, s,
                        c & 1, L.q_ld, D, !ip, nq, warp, lane);

@@ -10,10 +10,12 @@
 //
 // A list is kp entries in shared memory, sorted ascending, owned by one
 // warp. Two ways to fill it: `offer` inserts one candidate at a time
-// (the flat kernel); `offer_batch` gathers the candidates that beat the
-// list's last entry in a per-warp buffer and merges the sorted buffer into
-// the list by rank when it fills (the PQ kernel, and the probe kernel at
-// kp > 16).
+// (the flat kernel's f32 store); `offer_batch` gathers the candidates that
+// beat the list's last entry in a per-warp buffer and merges the sorted
+// buffer into the list by rank when it fills (the PQ kernel, and the probe
+// and flat kernels at kp > 16). For kp <= kRegK a query's candidates are
+// spread over several lanes, each keeping a `RegList` in registers (the
+// probe kernel, and the flat kernel's bf16 store).
 //
 // The key arithmetic wraps as XLA's int32 arithmetic does: the rounding
 // add runs in uint32 (signed overflow is undefined in C++), and `>> 31`
@@ -280,6 +282,96 @@ __device__ __forceinline__ void offer_batch(K* lk, int* lr, int kp, K* bk,
     if (kRows) br[at] = row;
   }
   nbuf += __popc(m);
+}
+
+// ---- selection in registers (kp <= kRegK) --------------------------------
+//
+// A query's candidates are split over a few lanes; each lane keeps the
+// kRegK best it is given, sorted, in registers. Where a lane's candidates
+// come in ascending row order, on equal keys an entry already in the list
+// goes first, so keys alone place a candidate and the list is in (key, row)
+// order; packed keys are unique and may come in any order. A candidate is
+// given to its lane only if it goes before tau, the least over the query's
+// lanes of their kp-th entries: tau's lane holds kp entries not after tau,
+// so nothing after it can be in the query's top-kp, and every entry of the
+// top-kp stays in its lane's list. The lists are merged at the end, kp
+// times the least head over the query's lanes.
+
+constexpr int kRegK = 16;                 // kp at most for lists in registers
+
+template <typename K, bool kRows>
+struct RegList {
+  K k[kRegK];
+  int r[kRows ? kRegK : 1];               // rows, kept with kRows
+};
+
+template <typename K, bool kRows>
+__device__ __forceinline__ void reg_fill(RegList<K, kRows>& L, K fill) {
+#pragma unroll
+  for (int i = 0; i < kRegK; ++i) {
+    L.k[i] = fill;
+    if constexpr (kRows) L.r[i] = -1;
+  }
+}
+
+// the candidate into the sorted list; the last entry drops out
+template <typename K, bool kRows>
+__device__ __forceinline__ void reg_insert(RegList<K, kRows>& L, K k, int r) {
+#pragma unroll
+  for (int i = kRegK - 1; i > 0; --i) {
+    const bool up = k < L.k[i - 1];     // entry i takes entry i - 1
+    const bool here = k < L.k[i];
+    L.k[i] = up ? L.k[i - 1] : (here ? k : L.k[i]);
+    if constexpr (kRows) L.r[i] = up ? L.r[i - 1] : (here ? r : L.r[i]);
+  }
+  if (k < L.k[0]) {
+    L.k[0] = k;
+    if constexpr (kRows) L.r[0] = r;
+  }
+}
+
+// entry i (0 <= i < kRegK, known at run time only) into (k, r)
+template <typename K, bool kRows>
+__device__ __forceinline__ void reg_at(const RegList<K, kRows>& L, int i,
+                                       K& k, int& r) {
+  k = L.k[0];
+  r = kRows ? L.r[0] : 0;
+#pragma unroll
+  for (int j = 1; j < kRegK; ++j)
+    if (j == i) {
+      k = L.k[j];
+      if constexpr (kRows) r = L.r[j];
+    }
+}
+
+// the head out; `fill` (row -1) enters at the end
+template <typename K, bool kRows>
+__device__ __forceinline__ void reg_pop(RegList<K, kRows>& L, K fill) {
+#pragma unroll
+  for (int i = 0; i < kRegK - 1; ++i) {
+    L.k[i] = L.k[i + 1];
+    if constexpr (kRows) L.r[i] = L.r[i + 1];
+  }
+  L.k[kRegK - 1] = fill;
+  if constexpr (kRows) L.r[kRegK - 1] = -1;
+}
+
+// the least (k, r) over the lane groups of `width` lanes, or over lanes
+// `step` apart within them (xor butterfly; equal pairs, only fills, may
+// leave lanes with different `who`)
+template <bool kRows, typename K>
+__device__ __forceinline__ void group_min(K& k, int& r, int& who, int width,
+                                          int step = 1) {
+  for (int o = width >> 1; o >= step; o >>= 1) {
+    const K ok = __shfl_xor_sync(kFull, k, o);
+    const int orr = kRows ? __shfl_xor_sync(kFull, r, o) : 0;
+    const int ow = __shfl_xor_sync(kFull, who, o);
+    if (before<kRows>(ok, orr, k, r)) {
+      k = ok;
+      r = orr;
+      who = ow;
+    }
+  }
 }
 
 }  // namespace ndb

@@ -18,7 +18,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List, Sequence, Tuple
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -89,6 +89,31 @@ def build(names: Iterable[str]) -> None:
                 os.replace(tmp, so)
         if failed:
             raise RuntimeError("\n".join(failed))
+
+
+def build_other(jobs: Sequence[Tuple[str, str, Sequence[str]]]
+                ) -> List[str]:
+    """Compile sources that are not the package's own (another version of
+    a kernel, a stage cut) for a side-by-side comparison: each (source,
+    library path, extra flags) with the package's nvcc flags, the source's
+    directory before ``csrc/`` on the include path (so a header beside
+    the source wins); one nvcc per source, all started together. Returns
+    each build's nvcc output (ptxas lines), in order; a failed build
+    raises."""
+    nvcc = find_nvcc()
+    procs = [subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, *flags, "-I", os.path.dirname(os.path.abspath(src)),
+         "-I", str(CSRC), "-o", so, src],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, so, flags in jobs]
+    outs = [proc.communicate()[0] for proc in procs]
+    failed = [f"nvcc failed on {src} {' '.join(flags)} (exit "
+              f"{proc.returncode}):\n{out}"
+              for (src, _, flags), proc, out in zip(jobs, procs, outs)
+              if proc.returncode != 0]
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
 
 
 def load_library(name: str) -> ctypes.CDLL:

@@ -9,8 +9,10 @@ Counterpart of ``neurondb_tpu/ops/pallas/ivf_scan_grouped.py``:
           the padded [T * qt, D] buffer.
   scan    ``grouped_probe_scan`` computes each tile's top-kp over its
           list: on a CUDA tensor by the hand-written kernel
-          ``csrc/ivf_scan_grouped.cu``, on a CPU tensor by
-          ``grouped_scan_plain``, the same function in plain torch.
+          ``csrc/ivf_scan_grouped.cu`` (bf16 store: tensor-core products)
+          or ``csrc/ivf_scan_grouped_f32.cu`` (f32 store: f32 FMA), both
+          with one C interface, on a CPU tensor by ``grouped_scan_plain``,
+          the same function in plain torch.
   post    ``merge_partials`` gathers each tuple's partial top-kp by its
           padded slot and merges across probe ranks.
 
@@ -253,26 +255,31 @@ def _mode(pos_bits: int, block_min: bool) -> int:
     return 2 if block_min else int(pos_bits > 0)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load_library("ivf_scan_grouped")
+# the kernel's source (and library) by store: bf16 or f32
+SOURCES = {True: "ivf_scan_grouped", False: "ivf_scan_grouped_f32"}
+
+
+def _lib(bf16: bool = True) -> ctypes.CDLL:
+    lib = _build.load_library(SOURCES[bf16])
     f = lib.ivf_grouped_scan
     f.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                   + [ctypes.c_longlong] + [ctypes.c_int] * 5
                   + [ctypes.c_void_p])
     f.restype = ctypes.c_int
     g = lib.ivf_grouped_scan_smem_bytes
-    g.argtypes = [ctypes.c_int] * 4
+    g.argtypes = [ctypes.c_int] * 5
     g.restype = ctypes.c_longlong
     return lib
 
 
-def _pick_qs(lib: ctypes.CDLL, qt: int, D: int, kp: int, mode: int) -> int:
+def _pick_qs(lib: ctypes.CDLL, qt: int, D: int, kp: int, mode: int,
+             bf16: bool) -> int:
     """Queries per kernel block: qt, halved while the block's shared
     memory (queries + staged rows + per-query top-kp lists) exceeds the
     card's 227 KB or qt exceeds the block's 64 query slots."""
     def fits(qs):
-        return (qs <= QS_MAX and
-                lib.ivf_grouped_scan_smem_bytes(qs, D, kp, mode) <= SMEM_MAX)
+        return (qs <= QS_MAX and 0 <= lib.ivf_grouped_scan_smem_bytes(
+            qs, D, kp, mode, int(bf16)) <= SMEM_MAX)
     qs = qt
     while not fits(qs) and qs % 2 == 0:
         qs //= 2
@@ -304,8 +311,9 @@ def _grouped_scan_cuda(qpad, vecs, tile_off, tile_cnt, *, kp, qt, metric,
     out_i = torch.empty((T, qt, kp), dtype=torch.int32, device=qpad.device)
     if T == 0:
         return out_d, out_i
-    lib = _lib()
-    qs = _pick_qs(lib, qt, D, kp, mode)
+    bf16 = vecs.dtype == torch.bfloat16
+    lib = _lib(bf16)
+    qs = _pick_qs(lib, qt, D, kp, mode, bf16)
     sub_per_tile = qt // qs
     with torch.cuda.device(qpad.device):
         stream = torch.cuda.current_stream(qpad.device).cuda_stream
@@ -313,8 +321,7 @@ def _grouped_scan_cuda(qpad, vecs, tile_off, tile_cnt, *, kp, qt, metric,
             qpad.data_ptr(), vecs.data_ptr(), tile_off.data_ptr(),
             tile_cnt.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
             T * sub_per_tile, sub_per_tile, qs, D, vecs.shape[0], kp,
-            int(metric == "ip"), int(vecs.dtype == torch.bfloat16), mode,
-            pos_bits, stream)
+            int(metric == "ip"), int(bf16), mode, pos_bits, stream)
     if err != 0:
         raise RuntimeError(f"ivf_grouped_scan launch failed: CUDA error {err}")
     LAUNCHES += 1

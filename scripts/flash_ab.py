@@ -23,7 +23,6 @@ Needs one CUDA card and nvcc; exits non-zero without them.
 
 import ctypes
 import os
-import subprocess
 import sys
 import tempfile
 import timeit
@@ -47,16 +46,13 @@ def main(argv):
     other_src = os.path.abspath(argv[0])
     with tempfile.TemporaryDirectory() as tmp:
         so = os.path.join(tmp, "libother.so")
-        proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", so, other_src],
-                              capture_output=True, text=True)
-        if proc.returncode:
-            raise SystemExit(f"nvcc failed on {other_src}:\n{proc.stdout}{proc.stderr}")
+        other_log = _build.build_other([(other_src, so, ())])[0]
         other = ctypes.CDLL(so)
         tree = FA._lib()
         f = other.flash_attention_fwd
         f.argtypes, f.restype = tree.flash_attention_fwd.argtypes, ctypes.c_int
         logs = {"tree": _build.build_log("flash_attention"),
-                "other": proc.stdout + proc.stderr}
+                "other": other_log}
         for name, log in logs.items():
             regs = CS._flash_ptxas(log)
             print(f"[ab] {name} ptxas: " + ", ".join(

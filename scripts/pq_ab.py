@@ -25,10 +25,8 @@ nvcc; exits non-zero without them.
 
 import ctypes
 import os
-import subprocess
 import sys
 import tempfile
-from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 sys.path.insert(0, ROOT)
@@ -40,12 +38,6 @@ import chip_smoke as CS  # noqa: E402
 TURNS, REPS = 5, 5
 # --stages: (name, value of the kernel's NDB_PQ_CUT)
 STAGES = (("no selection", 1), ("build only", 2))
-
-
-def _build_other(src, so, nvcc, flags):
-    cmd = [nvcc, *flags, "-I", os.path.dirname(src), "-I",
-           os.path.join(ROOT, "neurondb_tpu_torch", "csrc"), "-o", so, src]
-    return subprocess.run(cmd, capture_output=True, text=True)
 
 
 def main(argv):
@@ -68,24 +60,18 @@ def main(argv):
                                "ivfpq_scan.cu")
             srcs += [(name, own, [f"-DNDB_PQ_CUT={cut}"])
                      for name, cut in STAGES]
-        nvcc = _build.find_nvcc()
-        with ThreadPoolExecutor(max(1, len(srcs))) as pool:
-            procs = list(pool.map(
-                lambda s: _build_other(s[1], os.path.join(
-                    tmp, f"lib{abs(hash(s[0]))}.so"), nvcc,
-                    [*_build.NVCC_FLAGS, *s[2]]), srcs))
+        outs = _build.build_other(
+            [(src, os.path.join(tmp, f"lib{i}.so"), flags)
+             for i, (_, src, flags) in enumerate(srcs)])
         libs = {"tree": tree}
         logs = {"tree": _build.build_log("ivfpq_scan")}
-        for (name, src, _), proc in zip(srcs, procs):
-            if proc.returncode:
-                raise SystemExit(f"nvcc failed on {src}:\n{proc.stdout}"
-                                 f"{proc.stderr}")
-            lib = ctypes.CDLL(os.path.join(tmp, f"lib{abs(hash(name))}.so"))
+        for i, ((name, _, _), out) in enumerate(zip(srcs, outs)):
+            lib = ctypes.CDLL(os.path.join(tmp, f"lib{i}.so"))
             for fn in ("ivfpq_fused_scan", "ivfpq_scan_resident_blocks"):
                 getattr(lib, fn).argtypes = getattr(tree, fn).argtypes
                 getattr(lib, fn).restype = ctypes.c_int
             libs[name] = lib
-            logs[name] = proc.stdout + proc.stderr
+            logs[name] = out
         for name, log in logs.items():
             print(f"[pq_ab] {name} ptxas: " + ", ".join(
                 f"{m} {e} {r} registers / {sp} B spilled"

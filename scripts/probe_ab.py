@@ -102,13 +102,17 @@ def main(argv):
     dev = torch.device("cuda")
     with tempfile.TemporaryDirectory() as tmp:
         so = os.path.join(tmp, "libother.so")
-        proc = subprocess.run(
-            [_build.find_nvcc(), *_build.NVCC_FLAGS,
-             "-I", os.path.dirname(other_src), "-I", str(_build.CSRC),
-             "-o", so, other_src], capture_output=True, text=True)
-        if proc.returncode:
-            raise SystemExit(f"nvcc failed on {other_src}:\n{proc.stdout}"
-                             f"{proc.stderr}")
+        builds = [(f"cut {c}", f"-DNDB_PROBE_CUT={c}",
+                   str(_build.CSRC / "ivf_probe_scan.cu"), False)
+                  for c in ((1, 2) if stages else ())]
+        builds += [(f"variant {i}", "-DNDB_PROBE_CUT=0", v, True)
+                   for i, v in enumerate(variants)]
+        sos = [os.path.join(tmp, f"lib{name.replace(' ', '')}.so")
+               for name, _, _, _ in builds]
+        old_log, *outs = _build.build_other(
+            [(other_src, so, ())] +
+            [(src, lib_so, (flag,))
+             for (_, flag, src, _), lib_so in zip(builds, sos)])
         old = ctypes.CDLL(so)
         f = old.ivf_probe_scan
         f.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
@@ -120,21 +124,8 @@ def main(argv):
         g.restype = ctypes.c_longlong
         new = PS._lib()
         cuts = {}        # name -> (library, checked bit for bit)
-        builds = [(f"cut {c}", f"-DNDB_PROBE_CUT={c}",
-                   str(_build.CSRC / "ivf_probe_scan.cu"), False)
-                  for c in ((1, 2) if stages else ())]
-        builds += [(f"variant {i}", "-DNDB_PROBE_CUT=0", v, True)
-                   for i, v in enumerate(variants)]
-        for name, flag, src, check in builds:
-            lib_so = os.path.join(tmp, f"lib{name.replace(' ', '')}.so")
-            proc_c = subprocess.run(
-                [_build.find_nvcc(), *_build.NVCC_FLAGS, flag, "-I",
-                 str(_build.CSRC), "-o", lib_so, src],
-                capture_output=True, text=True)
-            if proc_c.returncode:
-                raise SystemExit(f"nvcc failed on {name} ({src}):\n"
-                                 f"{proc_c.stdout}{proc_c.stderr}")
-            for line in (proc_c.stdout + proc_c.stderr).splitlines():
+        for (name, _, src, check), lib_so, out in zip(builds, sos, outs):
+            for line in out.splitlines():
                 if check and ("registers" in line or "spill" in line):
                     print(f"[ab] {name} ({os.path.basename(src)}) ptxas: "
                           f"{line.strip()}")
@@ -142,7 +133,7 @@ def main(argv):
             lib.ivf_probe_scan.argtypes = new.ivf_probe_scan.argtypes
             cuts[name] = (lib, check)
         logs = {"new": _build.build_log("ivf_probe_scan"),
-                "old": proc.stdout + proc.stderr}
+                "old": old_log}
         for name, text in logs.items():
             for line in text.splitlines():
                 if "registers" in line or "spill" in line:

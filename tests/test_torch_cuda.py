@@ -59,7 +59,8 @@ def _tiles(rng, dev, counts, offsets, b, npad, qt, dim):
 @pytest.mark.parametrize("store", ["bfloat16", "float32"])
 @pytest.mark.parametrize("metric", ["sqeuclidean", "ip"])
 @pytest.mark.parametrize("kp,qt,dim", [(10, 64, 128), (100, 32, 128),
-                                       (1024, 16, 128), (8, 16, 200)])
+                                       (1024, 16, 128), (8, 16, 200),
+                                       (10, 64, 768), (1024, 16, 1024)])
 def test_kernel_matches_plain(dev, store, metric, kp, qt, dim):
     rng = np.random.default_rng(kp + qt + dim)
     vecs, offsets, counts = _layout(rng, [0, 3, 31, 1024, 1025, 2500, 77], dim)
@@ -154,6 +155,59 @@ def test_kernel_packed_modes_match_plain(dev, kp, qt, metric, block_min):
         (q * q).sum(-1) + (x * x).sum(-1) - 2 * dots, min=0)
     torch.testing.assert_close(kd[ki >= 0], own, rtol=RTOL + 2 * step,
                                atol=ATOL)
+
+
+@pytest.mark.parametrize("mode", ["exact", "packed", "blockmin"])
+@pytest.mark.parametrize("metric", ["sqeuclidean", "ip"])
+@pytest.mark.parametrize("dim", [128, 200, 13, 384, 768, 1024])
+@pytest.mark.parametrize("kp,qt", [(10, 64), (100, 32), (1024, 16)])
+def test_kernel_integer_data_matches_plain_bitwise(dev, kp, qt, dim, metric,
+                                                   mode):
+    """Integer-valued bf16 rows and queries: every product and sum is
+    exact on the tensor cores and in the plain version, so the kernel
+    equals grouped_scan_plain bit for bit, ties (many) included. D 13
+    takes the element copies and the zero padding to 16; D 200 and up
+    stage rows in 128-dim slabs, and D 384 and up fit fewer queries a
+    block."""
+    rng = np.random.default_rng(kp + qt + dim)
+    vecs, offsets, counts = _layout(rng, [0, 3, 31, 1024, 1025, 2500, 77], dim)
+    vecs = np.round(vecs * 1.5).clip(-4, 4)
+    vd = torch.from_numpy(vecs).to(dev, torch.bfloat16)
+    qpad, toff, tcnt = _tiles(rng, dev, counts, offsets, 3 * qt, 6, qt, dim)
+    qpad = (qpad * 1.5).round().clamp(-3, 3)
+    kw = dict(kp=kp, qt=qt, metric=metric, pos_bits=0 if mode == "exact"
+              else 12, block_min=mode == "blockmin")
+    before = G.LAUNCHES
+    kd, ki = G.grouped_probe_scan(qpad, vd, toff, tcnt, **kw)
+    pd, pi = G.grouped_scan_plain(qpad, vd, toff, tcnt, **kw)
+    torch.cuda.synchronize()
+    assert G.LAUNCHES == before + 1
+    assert torch.equal(kd, pd) and torch.equal(ki, pi)
+
+
+@pytest.mark.parametrize("mode", ["exact", "packed", "blockmin"])
+@pytest.mark.parametrize("kp,qt", [(10, 64), (16, 16)])
+def test_kernel_top_rows_in_one_warp_bitwise(dev, kp, qt, mode):
+    """Every query's nearest rows sit at chunk rows 0-7 (the first n-tile
+    of one warp, half in each of its two lanes) and tie; integer data, so
+    the kernel equals grouped_scan_plain bit for bit."""
+    rng = np.random.default_rng(kp + qt)
+    n, dim = 1500, 128
+    v = rng.integers(-6, 7, dim)
+    far = rng.choice([-6, -5, -4, 4, 5, 6], (n, dim))
+    rows = np.where((np.arange(n) % 64 < 8)[:, None], v, v + far)
+    vd = torch.from_numpy(np.concatenate([rows, np.zeros((1024, dim))])
+                          .astype(np.float32)).to(dev, torch.bfloat16)
+    qpad = torch.from_numpy((v + rng.integers(-1, 2, (3 * qt, dim)))
+                            .astype(np.float32)).to(dev)
+    toff = torch.zeros(3, dtype=torch.int32, device=dev)
+    tcnt = torch.tensor([n, 700, 9], dtype=torch.int32, device=dev)
+    kw = dict(kp=kp, qt=qt, pos_bits=0 if mode == "exact" else 11,
+              block_min=mode == "blockmin")
+    kd, ki = G.grouped_probe_scan(qpad, vd, toff, tcnt, **kw)
+    pd, pi = G.grouped_scan_plain(qpad, vd, toff, tcnt, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(kd, pd) and torch.equal(ki, pi)
 
 
 def _pq_layout(rng, lens, ns):

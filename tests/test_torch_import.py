@@ -163,6 +163,52 @@ def test_build_log_survives_a_cached_build(tmp_path, monkeypatch):
     assert "Used 40 registers" in _build.build_log("ivfpq_scan")
 
 
+def test_build_other_uses_package_flags_and_own_headers_first(tmp_path,
+                                                             monkeypatch):
+    """Another source (an A/B script's) builds with the package's nvcc
+    flags and its extra ones, its own directory before csrc/ on the
+    include path; all start together, each build's output comes back in
+    order, and a failed build raises naming its source."""
+    log = tmp_path / "argv"
+    nvcc = tmp_path / "bin" / "nvcc"
+    nvcc.parent.mkdir()
+    nvcc.write_text(f'#!/bin/sh\necho "$@" >> "{log}"\n'
+                    'case "$*" in *bad.cu*) echo broken; exit 2;; esac\n'
+                    'while [ "$1" != "-o" ]; do shift; done\n: > "$2"\n'
+                    'echo "ptxas info    : Used 7 registers"\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("PATH", str(nvcc.parent))
+    other = tmp_path / "old" / "k.cu"
+    other.parent.mkdir()
+    other.write_text("// kernel\n")
+    jobs = [(str(other), str(tmp_path / "a.so"), ()),
+            (str(other), str(tmp_path / "b.so"), ("-DCUT=1",))]
+    outs = _build.build_other(jobs)
+    assert outs == ["ptxas info    : Used 7 registers\n"] * 2
+    assert (tmp_path / "a.so").exists() and (tmp_path / "b.so").exists()
+    lines = log.read_text().splitlines()
+    assert sorted("-DCUT=1" in ln for ln in lines) == [False, True]
+    for ln in lines:
+        assert " ".join(_build.NVCC_FLAGS) in ln
+        assert ln.index(f"-I {other.parent}") < ln.index(f"-I {_build.CSRC}")
+    bad = tmp_path / "bad.cu"
+    bad.write_text("// broken\n")
+    with pytest.raises(RuntimeError, match="bad.cu"):
+        _build.build_other([(str(bad), str(tmp_path / "c.so"), ())])
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+def test_grouped_sources_share_one_c_entry(bf16):
+    """The bf16 store's tensor-core kernel and the f32 store's FMA kernel
+    are two sources (two libraries, built in parallel) behind one C
+    interface; the wrapper picks the library by the store's type."""
+    src = (_build.CSRC / f"{G.SOURCES[bf16]}.cu").read_text()
+    for entry in ("long long ivf_grouped_scan_smem_bytes(int qs, int D, "
+                  "int kp, int mode,", "int ivf_grouped_scan(const void* qpad,"):
+        assert entry in src
+    assert ("mma_bf16" in src) == bf16
+
+
 def test_library_name_follows_shared_headers(tmp_path, monkeypatch):
     """An edit to a shared header (csrc/*.cuh) renames every library, so
     a stale build is never loaded."""
