@@ -65,7 +65,21 @@ each print their own lines:
    105-124 s of host compression);
    one search with a delete outstanding (the segment route); then the
    n_sub = 16 index (no OPQ) at nprobe 4, rerank 0 and 8;
-9. flash kernel against plain: ``flash_attention``'s CUDA kernel against
+9. HNSW main path (after 7, on 5's corpus and exact neighbours):
+   ``bench.py``'s secondary configuration, ``HNSWIndex(x, m=16, seed=0,
+   build_mode="bulk")``: build seconds per phase, peak device memory and
+   the grouped kernel's launches during the build (its IVF bootstrap:
+   nlists 2,000, k 33, nprobe 16, batches of 16,384), which must be more
+   than 0; the grouped kernel at the bootstrap's first batch against its
+   plain version, timed beside its bound; recall@10 (against the exact
+   f32 neighbours, which must reach 0.95 at some ef <= 128, and against
+   the committed ground truth) and QPS at batch 16,384 for ef in 16, 24,
+   32, 48, 64, 96, 128, with no duplicate id in a row and every returned
+   distance its row's own; a profile of one 4,096-query sub-batch; 10,000
+   rows added (each must find itself first on >= 0.9), 1% of ids deleted
+   (none returned), one compact, and a save/load round trip of a
+   100k-row index that must return identical ids;
+10. flash kernel against plain: ``flash_attention``'s CUDA kernel against
    ``flash_attention_plain`` at the kernel's KV tile, for Dh in {32, 64,
    128}, S in {1, 100, 127, 128, 129, 257, 300, 512, 513, 640, 1900} (the
    128-row query tile's edges among them), ragged masks, a fully masked
@@ -77,7 +91,7 @@ each print their own lines:
    casts made inside the timed call), kernel and SDPA in alternating
    turns, medians and their ratio; SDPA's kernels named once per mode
    from a profile;
-10. cross-encoder main path: a BERT-base export (random weights from a
+11. cross-encoder main path: a BERT-base export (random weights from a
    numpy seed) in a temp dir; ``rerank_cross_encoder`` over 256 docs of
    512 tokens through ``PretrainedCrossEncoder(max_len=512, batch=64)``
    with the flash launches of that call counted per mode; docs/s
@@ -87,13 +101,15 @@ each print their own lines:
    self-retrieval through a cosine ``FlatIndex``; the default
    ``CrossEncoder()`` and ``TextEmbedder()`` through the kernel.
 
-Between 9 and 10, the probe kernel against plain: ``probe_scan``'s CUDA
+Between 10 and 11, the probe kernel against plain: ``probe_scan``'s CUDA
 kernel (work table + kernel) against ``probe_scan_plain``; ptxas
 registers and spills of both instantiations (a spill fails the run), the
 query tile and resident blocks per SM at kp 10, 100, 512; ragged lists
 0-2500 rows at B 37, k 1 to 1000, nprobe 1 to 6, both metrics; hot lists
 (every query probes the same 3, so items split) and adjacent empty lists
-at k 10 and 512; an all-empty probe set; then two headlines, 16,384 x
+at k 10 and 512; D 384, 768 and 1024 (rows staged in 128-dim slabs) in
+both stores at k 10 and 512; an all-empty probe set; then two
+headlines, 16,384 x
 nprobe 8 and 1,024 x nprobe 4 on the 1M-row layout: the wrapper, the
 kernel alone and the work table in turns, beside the bound and the rows
 the kernel reads. After 5, on its index, the probe route
@@ -172,9 +188,24 @@ PROBE_B = 37              # queries per case: no multiple of 16
 PROBE_CASES = tuple((k, npb) for k in (1, 10, 100, 512) for npb in (3, 6)) + \
     ((1000, 1), (1000, 3))  # (k, nprobe): 1000 caps per probe and pads
 PROBE_HOT = (8, 6, 5)      # lists every query probes: 2500, 1024, 513 rows
+PROBE_WIDE = (384, 768, 1024)   # widths staged in 128-dim slabs
+PROBE_WIDE_ROWS = 100_000       # the wide widths' timed layout
 # adjacent empty lists, each starting where the next list starts
 PROBE_LENS_EMPTY = (0, 0, 40, 0, 700, 0, 0, 3, 1100)
 ROUTE_AGREE_BAR = 0.99    # probe route ids vs the grouped exact mode's
+# HNSW: bench.py's secondary configuration on the main path's corpus
+HNSW_M = 16
+HNSW_EFS = (16, 24, 32, 48, 64, 96, 128)
+HNSW_ADD = 10_000          # rows added to the built index
+HNSW_DELETE = 0.01         # share of ids deleted
+HNSW_SELF_BAR = 0.9        # added rows that find themselves first
+HNSW_DIST_RTOL = 1e-3      # returned distance vs its row's own distance
+# ... plus this share of |q|^2 + |x|^2, where the f32 expansion rounds:
+# 3.4x the largest reading, 2.9e-7 (NVIDIA H100 80GB HBM3, 700 W)
+HNSW_TERMS_TOL = 1e-6
+# bootstrap scan vs plain, absolute: 4.1x the largest reading at its
+# self-hits (d ~ 0 beside terms ~ 2,000), 7.3e-4 (the same card)
+HNSW_BOOT_ATOL = 3e-3
 
 
 def log(msg: str) -> None:
@@ -320,7 +351,7 @@ def _row_dists(qpad, vecs, rows, metric, qt):
 
 
 def _compare_packed(kd, ki, pd, pi, qpad, vecs, metric, qt, pb, label,
-                    positional):
+                    positional, atol=ATOL):
     """Packed keys: sorted values allclose at rtol 1e-3 + 2 * 2**(pb-24)
     (tests/test_pallas_kernels.py:159-246); every kernel row decodes to
     its own distance within the key rounding; with ``positional`` (packed,
@@ -328,17 +359,17 @@ def _compare_packed(kd, ki, pd, pi, qpad, vecs, metric, qt, pb, label,
     import torch
     step = 2.0 ** (pb - 24)
     err = _compare(kd, ki, pd, pi, label, rtol=SEL_RTOL + 2 * step,
-                   atol=ATOL) if positional else None
+                   atol=atol) if positional else None
     kp = kd.shape[-1]
     live = pd[..., :kp] < 1e30
     if not torch.equal(kd < 1e30, live):
         fail(f"{label}: kernel and plain disagree on which slots are filled")
     kd_l, pd_l = kd[live], pd[..., :kp][live]
-    if not torch.allclose(kd_l, pd_l, rtol=SEL_RTOL + 2 * step, atol=ATOL):
+    if not torch.allclose(kd_l, pd_l, rtol=SEL_RTOL + 2 * step, atol=atol):
         fail(f"{label}: sorted distances differ by up to "
              f"{(kd_l - pd_l).abs().max().item()}")
     own = _row_dists(qpad, vecs, ki, metric, qt)
-    if not torch.allclose(kd_l, own, rtol=RTOL + 2 * step, atol=ATOL):
+    if not torch.allclose(kd_l, own, rtol=RTOL + 2 * step, atol=atol):
         fail(f"{label}: kernel rows do not carry their own distances "
              f"(off by up to {(kd_l - own).abs().max().item()})")
     return err if err is not None else \
@@ -872,11 +903,11 @@ def _rep(search, batch, n_batches=4):
     return n_batches * batch / (time.perf_counter() - t0)
 
 
-def _qps(search, batch, reps=3):
-    """Median pipelined QPS of ``reps`` reps of 4 searches, after one
-    warm rep; and all reps."""
-    _rep(search, batch)
-    reps_ = [_rep(search, batch) for _ in range(reps)]
+def _qps(search, batch, reps=3, n_batches=4):
+    """Median pipelined QPS of ``reps`` reps of ``n_batches`` searches,
+    after one warm rep; and all reps."""
+    _rep(search, batch, n_batches)
+    reps_ = [_rep(search, batch, n_batches) for _ in range(reps)]
     return float(np.median(reps_)), reps_
 
 
@@ -1085,6 +1116,284 @@ def phase_probe_route(index, qb, chosen, gt, exact):
         fail(f"probe route ids agree with the grouped exact mode's on "
              f"{agree} < {ROUTE_AGREE_BAR} of recall@10")
     return launches
+
+
+def _fails(check) -> bool:
+    """True when ``check()`` fails: a control that must not pass."""
+    try:
+        check()
+    except SystemExit:
+        return True
+    return False
+
+
+def _hnsw_row_err(q, d, ids, index):
+    """|d^2 - the row's own d^2|, that d^2 and |q|^2 + |x|^2 per returned
+    slot [B, k], the row's as the index stores it (the bf16 row, |x|^2
+    from the f32 source), recomputed in float64 on the host."""
+    import torch
+    order = np.argsort(index._ids_np, kind="stable")
+    rows = order[np.searchsorted(index._ids_np[order], np.maximum(ids, 0))]
+    rows_d = torch.from_numpy(rows).to(index.device)
+    x = index._vecs[rows_d].double().cpu().numpy()          # [B, k, D]
+    sq = index._sqnorms[rows_d].double().cpu().numpy()
+    q64 = q.astype(np.float64)
+    terms = (q64 * q64).sum(1)[:, None] + sq
+    want = np.maximum(terms - 2.0 * np.einsum("bd,bkd->bk", q64, x), 0.0)
+    return np.abs(d.astype(np.float64) ** 2 - want), want, terms
+
+
+def _hnsw_check_rows(label, q, d, ids, index):
+    """Rows without duplicate ids, each returned d^2 its row's own within
+    HNSW_DIST_RTOL of it plus HNSW_TERMS_TOL of |q|^2 + |x|^2 (the search
+    rounds the f32 expansion |q|^2 + |x|^2 - 2 q.x at the scale of its
+    terms, ~1,300 beside a near row's d^2 ~ 0.3). A wrong-row control (each
+    distance against the next slot's row) must fail the same test. Returns
+    the largest |error| / terms."""
+    for r, row in enumerate(ids):
+        live = row[row >= 0]
+        if len(np.unique(live)) != len(live):
+            fail(f"{label}: duplicate ids in row {r}: {row}")
+    ok = ids >= 0
+
+    def check(rows):
+        err, want, terms = _hnsw_row_err(q, d, rows, index)
+        live = ok & (rows >= 0)
+        if not (err <= HNSW_DIST_RTOL * want + HNSW_TERMS_TOL * terms)[live] \
+                .all():
+            fail(f"{label}: a returned distance is not its row's distance "
+                 f"(d^2 off by up to {err[live].max()})")
+        return float((err / terms)[live].max())
+
+    worst = check(ids)
+    if not _fails(lambda: check(np.roll(ids, 1, axis=1))):
+        fail(f"{label}: the wrong-row control passed the distance check")
+    return worst
+
+
+def _check_bootstrap_scan(qpad, vecs, toff, tcnt, kw):
+    """The grouped kernel at the HNSW bootstrap's shape against its plain
+    version, at phase_kernel's relative tolerances with HNSW_BOOT_ATOL as
+    the absolute one; prints the readings first, and fails unless a
+    wrong-row control fails too. Returns max |kernel - plain|."""
+    import torch
+    from neurondb_tpu_torch.ops.kernels import ivf_scan_grouped as G
+    kd, ki = G.grouped_probe_scan(qpad, vecs, toff, tcnt, **kw)
+    pd, pi = G.grouped_scan_plain(qpad, vecs, toff, tcnt,
+                                  **dict(kw, kp=kw["kp"] + 1))
+    if kd.is_cuda:
+        torch.cuda.synchronize()
+    label = "hnsw bootstrap scan"
+    # the queries are corpus rows: slot 0 of each tuple of a query's own
+    # list is its self-hit at d ~ 0, where the f32 rounding of
+    # |q|^2 + |x|^2 - 2 q.x is relative to the terms, not to d; the
+    # absolute tolerance there is HNSW_BOOT_ATOL, a few times the reading
+    kp = kw["kp"]
+    qt = kw["qt"]
+    qrows = qpad.reshape(kd.shape[0], qt, -1)
+    self_hit = (pi[..., 0] >= 0) & (
+        vecs[pi[..., 0].clamp(min=0).long()] == qrows.to(vecs.dtype)).all(-1)
+    live = pd[..., :kp] < 1e30
+    diff = (kd - pd[..., :kp]).abs()
+    self_err = float(diff[..., 0][self_hit].max()) if self_hit.any() else 0.0
+    rest = live.clone()
+    rest[..., 0] &= ~self_hit
+    # elsewhere the part of |kernel - plain| past the relative tolerance
+    rtol = SEL_RTOL + 2.0 ** (kw["pos_bits"] - 23) if kw["pos_bits"] \
+        else RTOL
+    past = (diff - rtol * pd[..., :kp].abs())[rest]
+    rest_err = max(float(past.max()), 0.0) if past.numel() else 0.0
+    log(f"[hnsw] bootstrap grouped scan vs plain: at the "
+        f"{int(self_hit.sum())} self-hits max |kernel - plain| "
+        f"{self_err:.3e}; at the other filled slots at most {rest_err:.3e} "
+        f"past rtol {rtol:.3e} (atol {HNSW_BOOT_ATOL:.0e})")
+    if kw["pos_bits"]:
+        def compare(ids):
+            return _compare_packed(kd, ids, pd, pi, qpad, vecs, kw["metric"],
+                                   qt, kw["pos_bits"], label,
+                                   positional=not kw["block_min"],
+                                   atol=HNSW_BOOT_ATOL)
+    else:
+        def compare(ids):
+            return _compare(kd, ids, pd, pi, label, atol=HNSW_BOOT_ATOL)
+    err = compare(ki)
+    # wrong-row control: the self-hit and the next row trade places
+    swapped = ki.clone()
+    swapped[..., 0] = torch.where(self_hit, ki[..., 1], ki[..., 0])
+    swapped[..., 1] = torch.where(self_hit, ki[..., 0], ki[..., 1])
+    if not _fails(lambda: compare(swapped)):
+        fail(f"{label}: the wrong-row control passed the comparison")
+    return err
+
+
+def phase_hnsw(x, qb, gt, exact, smi):
+    """bench.py's secondary HNSW configuration on the main path's corpus:
+    HNSWIndex(x, m=16, seed=0, build_mode="bulk") on the card, its
+    grouped-kernel bootstrap held to the plain version at the bootstrap's
+    shape, the ef sweep, a profile, mutation and a save/load round trip.
+    Returns the grouped kernel's launches during the build."""
+    import torch
+    import neurondb_tpu_torch as nt
+    from neurondb_tpu_torch.ml.metrics import recall_at_k
+    from neurondb_tpu_torch.ops.kernels import ivf_scan_grouped as G
+
+    # the bootstrap's first grouped scan: its tuples and its inputs
+    seen = {}
+    group_probes, scan = G.group_probes, G.grouped_probe_scan
+
+    def grouping(probes, offsets, counts, **kw):
+        seen.setdefault("probes", (probes, counts))
+        return group_probes(probes, offsets, counts, **kw)
+
+    def scanning(*a, **kw):
+        seen.setdefault("scan", (a, kw))
+        return scan(*a, **kw)
+
+    G.group_probes, G.grouped_probe_scan = grouping, scanning
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    _zero_launches()
+    try:
+        t0 = time.perf_counter()
+        index = nt.HNSWIndex(x, m=HNSW_M, seed=0, build_mode="bulk",
+                             device="cuda")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+    finally:
+        G.group_probes, G.grouped_probe_scan = group_probes, scan
+    launches = G.LAUNCHES
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    st = index.stats()
+    phases = ", ".join(f"{k} {v:.2f} s"
+                       for k, v in index.build_seconds.items())
+    log(f"[hnsw] HNSWIndex({x.shape[0]} x {x.shape[1]}, m={HNSW_M}, seed=0, "
+        f"bulk) built in {build_s:.2f} s on {smi}: {phases}; peak device "
+        f"memory {peak / 1e9:.2f} GB above the {base_mem / 1e9:.2f} GB held "
+        f"before; grouped-kernel launches {launches}; store "
+        f"{index._vecs.dtype}, levels {st['level_histogram']}, degree mean "
+        f"{st['degree_mean']:.2f} min {st['degree_min']}, isolated "
+        f"{st['isolated_nodes']}, router {index._router['reps'].shape[0]} "
+        f"cells")
+    if launches == 0 or "scan" not in seen:
+        fail("the HNSW bulk build did not launch the grouped scan kernel")
+    if index._vecs.device.type != "cuda" or st["isolated_nodes"]:
+        fail("the HNSW graph must live on the card, with no isolated node")
+
+    # the grouped kernel at the bootstrap's shape against its plain version
+    (qpad, vecs, toff, tcnt), kw = seen.pop("scan")
+    probes, counts = seen.pop("probes")
+    err = _check_bootstrap_scan(qpad, vecs, toff, tcnt, kw)
+    kp = kw["kp"]
+    nlists = counts.shape[0]
+    tuples, rows, uniq = _probe_work(probes, counts, nlists)
+    nbytes = uniq * vecs.shape[1] * 2 + tuples * vecs.shape[1] * 4 + \
+        tuples * kp * 8
+    flops = 2.0 * rows * vecs.shape[1]
+    bound_ms, bound_by = _bound(nbytes, flops, "bf16 tensor core")
+    ms = _cuda_ms(lambda: G.grouped_probe_scan(qpad, vecs, toff, tcnt, **kw),
+                  20)
+    plain_ms = _cuda_ms(lambda: G.grouped_scan_plain(qpad, vecs, toff, tcnt,
+                                                     **kw), 2)
+    log(f"[hnsw] bootstrap grouped scan ({probes.shape[0]} queries x nprobe "
+        f"{probes.shape[1]}, {nlists} lists, kp {kp}, qt {kw['qt']}, pb "
+        f"{kw['pos_bits']}, {toff.shape[0]} tiles): max |kernel - plain| "
+        f"{err:.3e}, the wrong-row control fails; kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}; {nbytes / 1e9:.3f} GB, "
+        f"{flops / 1e9:.1f} GFLOP over {tuples} tuples) on {smi}")
+    del qpad, vecs, toff, tcnt, probes, counts
+    torch.cuda.empty_cache()
+
+    # the ef sweep at batch 16,384
+    chosen, table = None, []
+    for ef in HNSW_EFS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d, ids = index.search(qb, k=K, ef=ef)
+        wall = time.perf_counter() - t0
+        worst = _hnsw_check_rows(f"hnsw ef {ef}", qb[:NQ], d[:NQ], ids[:NQ],
+                                 index)
+        r_ex, r_gt = recall_at_k(ids[:NQ], exact), recall_at_k(ids[:NQ], gt)
+        qps, reps = _qps(lambda: index.search(qb, k=K, ef=ef), BATCH, reps=3,
+                         n_batches=1)
+        table.append((ef, r_ex, r_gt, qps))
+        log(f"[hnsw] ef {ef:>3}: recall@10 {r_ex:.4f} vs exact f32, {r_gt:.4f}"
+            f" vs the committed ground truth; QPS median {qps:.0f} of "
+            f"{[round(v) for v in reps]} (batch {BATCH}, one search a rep, "
+            f"after a warm rep; first search {wall * 1e3:.0f} ms) on {smi}; "
+            f"d^2 within {worst:.3e} of |q|^2 + |x|^2 of its row's own, the "
+            f"wrong-row control fails")
+        if chosen is None and r_ex >= RECALL_BAR:
+            chosen = ef
+    if chosen is None:
+        fail(f"HNSW recall@10 below {RECALL_BAR} against the exact f32 "
+             f"neighbours at every ef <= {HNSW_EFS[-1]}")
+    log(f"[hnsw] smallest ef with recall@10 >= {RECALL_BAR} vs exact: "
+        f"{chosen}")
+    sub = int(max(64, min(4096, (1 << 32) // index._ncap)))  # one sub-batch
+    _profile(f"hnsw profile ef {chosen} batch {sub}",
+             lambda: index.search(qb[:sub], k=K, ef=chosen))
+
+    # mutation: add, self-query, delete, compact
+    rng = np.random.default_rng(7)
+    new = x[rng.choice(x.shape[0], HNSW_ADD, replace=False)] + \
+        0.5 * rng.standard_normal((HNSW_ADD, x.shape[1])).astype(np.float32)
+    t0 = time.perf_counter()
+    new_ids = index.add(new)
+    torch.cuda.synchronize()
+    add_s = time.perf_counter() - t0
+    _, ids = index.search(new, k=1)
+    self_hit = float((ids[:, 0] == new_ids).mean())
+    _, ids = index.search(new, k=1, ef=chosen)
+    log(f"[hnsw] add {HNSW_ADD} rows in {add_s:.2f} s; self-query top-1 "
+        f"{self_hit:.4f} at the index's ef_search {index.ef_search} (bar "
+        f"{HNSW_SELF_BAR}), {float((ids[:, 0] == new_ids).mean()):.4f} at "
+        f"ef {chosen}")
+    if self_hit < HNSW_SELF_BAR:
+        fail(f"added rows find themselves on {self_hit} < {HNSW_SELF_BAR}")
+    drop = rng.choice(x.shape[0], int(HNSW_DELETE * x.shape[0]),
+                      replace=False).astype(np.int64)
+    removed = index.delete(drop)
+    d, ids = index.search(qb, k=K, ef=chosen)
+    r_del = recall_at_k(ids[:NQ], exact)
+    if removed != len(drop) or np.isin(ids, drop).any():
+        fail("a deleted id was returned (or the delete missed ids)")
+    t0 = time.perf_counter()
+    ndead = index.compact()
+    torch.cuda.synchronize()
+    compact_s = time.perf_counter() - t0
+    d, ids = index.search(qb, k=K, ef=chosen)
+    if ndead != len(drop) or np.isin(ids, drop).any() or \
+            index.n != x.shape[0] + HNSW_ADD - len(drop):
+        fail("compact kept a deleted id or lost a live one")
+    _hnsw_check_rows("hnsw after compact", qb[:NQ], d[:NQ], ids[:NQ], index)
+    log(f"[hnsw] delete {removed} ids: none returned, recall@10 vs exact "
+        f"{r_del:.4f} at ef {chosen} (deleted neighbours count as misses); "
+        f"compact in {compact_s:.2f} s, {index.n} rows, recall@10 vs exact "
+        f"{recall_at_k(ids[:NQ], exact):.4f}")
+    del index
+    torch.cuda.empty_cache()
+
+    # save/load of a SAVE_ROWS-row index
+    small = nt.HNSWIndex(x[:SAVE_ROWS], m=HNSW_M, seed=0, build_mode="bulk",
+                         device="cuda")
+    _, before = small.search(qb[:NQ], k=K, ef=chosen)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        small.save(tmp)
+        loaded = nt.HNSWIndex.load(tmp, device="cuda")
+        secs = time.perf_counter() - t0
+    _, after = loaded.search(qb[:NQ], k=K, ef=chosen)
+    if not np.array_equal(before, after):
+        fail(f"HNSW save/load changed {int((before != after).sum())} ids")
+    log(f"[hnsw] save/load of a {SAVE_ROWS}-row index in {secs:.2f} s; ids "
+        f"identical")
+    del small, loaded
+    torch.cuda.empty_cache()
+    mode = ("exact" if not kw["pos_bits"] else
+            "blockmin" if kw["block_min"] else "packed")
+    return launches, mode
 
 
 def phase_save_load(index, qb, nprobe):
@@ -1460,16 +1769,16 @@ def phase_flash_kernel(smi):
 
 
 def _probe_ptxas(log):
-    """{(store, widest tile): (registers, spill store + load bytes)} of the
-    probe kernel's four instantiations (bf16, f32 x tiles up to 8, up to
-    32), from ptxas's lines in its build log."""
+    """{(store, widest tile, slabs): (registers, spill store + load bytes)}
+    of the probe kernel's eight instantiations (bf16, f32 x tiles up to 8,
+    up to 32 x D <= 128, wider), from ptxas's lines in its build log."""
     out, cur = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"probe_scan_kernelI(13__nv_bfloat16|f)Li(\d+)E",
-                          line)
+            m = re.search(r"probe_scan_kernelI(13__nv_bfloat16|f)Li(\d+)E"
+                          r"Lb([01])E", line)
             cur = ("f32" if m.group(1) == "f" else "bf16",
-                   int(m.group(2))) if m else None
+                   int(m.group(2)), m.group(3) == "1") if m else None
             if cur:
                 out[cur] = [None, 0]
         elif cur and "spill" in line:
@@ -1583,7 +1892,39 @@ def _probe_headline(rng, vecs, offsets, counts, lens, batch, nprobe, lib,
     return err, ms, plain_ms, bound_ms, bound_by
 
 
-def phase_probe_kernel():
+def _probe_wide_times(rng, dev, smi):
+    """The probe kernel at the wide rows, timed (wrapper: work table and
+    kernel) beside its bound: 1,024 queries x nprobe 8, k 10, over 200
+    lists of ~500 rows (100k rows), both stores."""
+    import torch
+    from neurondb_tpu_torch.ops.kernels import ivf_scan as PS
+    lens = rng.multinomial(PROBE_WIDE_ROWS, np.full(200, 1 / 200))
+    max_segs = PS.segments_for(int(lens.max()))
+    kp = PS.kp_for(K)
+    for dim in PROBE_WIDE:
+        for dtype in (torch.bfloat16, torch.float32):
+            vecs, offsets, counts = _layout(rng, lens, dim, dtype, dev)
+            q = torch.randn((1024, dim), device=dev)
+            probes = _probes(rng, 1024, 8, 8, 200, dev)
+            poff, pcnt = offsets[probes.long()], counts[probes.long()]
+            tuples, rows, uniq = _probe_work(probes, counts, 200)
+            esize = vecs.element_size()
+            nbytes = (uniq * dim * esize + 1024 * dim * 4 + tuples * 8
+                      + tuples * kp * 8)
+            flops = 2.0 * rows * dim + 2.0 * uniq * dim
+            bound_ms, bound_by = _bound(nbytes, flops, "f32")
+            ms = _cuda_ms(lambda: PS.probe_scan(q, vecs, poff, pcnt, kp=kp,
+                                                max_segs=max_segs), 10)
+            log(f"[probe] D {dim} {'bf16' if esize == 2 else 'f32'} store, "
+                f"1024 x nprobe 8 over {PROBE_WIDE_ROWS} rows in 200 lists, "
+                f"kp {kp}: wrapper {ms:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({bound_by}; {nbytes / 1e9:.3f} GB, {flops / 1e9:.2f} "
+                f"GFLOP at the f32 peak), wrapper / bound "
+                f"{ms / bound_ms:.2f} on {smi}")
+            del vecs
+
+
+def phase_probe_kernel(smi):
     import torch
     from neurondb_tpu_torch.ops.kernels import _build
     from neurondb_tpu_torch.ops.kernels import ivf_scan as PS
@@ -1591,14 +1932,14 @@ def phase_probe_kernel():
     rng = np.random.default_rng(3)
     lib = PS._lib()
     ptxas = _probe_ptxas(_build.build_log("ivf_probe_scan"))
-    if len(ptxas) != 4:
-        fail(f"probe: ptxas lines for {len(ptxas)} of 4 kernels in the log")
-    for (store, widest), (regs, spill) in sorted(ptxas.items()):
-        log(f"[probe] ptxas probe_scan_kernel<{store}, tiles to {widest}>: "
-            f"{regs} registers, {spill} bytes spilled")
+    if len(ptxas) != 8:
+        fail(f"probe: ptxas lines for {len(ptxas)} of 8 kernels in the log")
+    for (store, widest, slabs), (regs, spill) in sorted(ptxas.items()):
+        name = (f"probe_scan_kernel<{store}, tiles to {widest}, "
+                f"{'D > 128' if slabs else 'D <= 128'}>")
+        log(f"[probe] ptxas {name}: {regs} registers, {spill} bytes spilled")
         if spill:
-            fail(f"probe_scan_kernel<{store}, {widest}> spills {spill} "
-                 f"bytes")
+            fail(f"{name} spills {spill} bytes")
     for kp in (10, 100, 512):
         tq = PS.pick_tile(lib, DIM, kp, True)
         log(f"[probe] kp {kp}: tile {tq}, "
@@ -1637,6 +1978,30 @@ def phase_probe_kernel():
                 PS.segments_for(max(PROBE_LENS_EMPTY)),
                 f"probe adjacent empty lists k={k} {metric}"))
             n_cases += 2
+    # wide rows, staged in 128-dim slabs: both stores, k 10 and 512
+    n_wide = 0
+    for dim in PROBE_WIDE:
+        for dtype in (torch.bfloat16, torch.float32):
+            w_vecs, w_off, w_cnt = _layout(rng, PROBE_LENS, dim, dtype, dev)
+            bf16 = dtype == torch.bfloat16
+            for k in (10, 512):
+                kp = PS.kp_for(k)
+                tq = PS.pick_tile(lib, dim, kp, bf16)
+                smem = lib.ivf_probe_scan_smem_bytes(tq, dim, kp, int(bf16))
+                log(f"[probe] D {dim} {'bf16' if bf16 else 'f32'} kp {kp}: "
+                    f"tile {tq}, {smem} B of shared memory, "
+                    f"{lib.ivf_probe_scan_occupancy(tq, dim, kp, int(bf16))} "
+                    f"blocks per SM")
+                for metric in ("sqeuclidean", "ip"):
+                    q = torch.randn((PROBE_B, dim), device=dev)
+                    lists = _probes(rng, PROBE_B, 3, 3, nl, dev).long()
+                    err_max = max(err_max, _probe_check(
+                        q, w_vecs, w_off[lists], w_cnt[lists], k, metric,
+                        max_segs, f"probe D {dim} {dtype} k={k} {metric}"))
+                    n_wide += 1
+            del w_vecs
+    n_cases += n_wide
+    _probe_wide_times(rng, dev, smi)
     q = torch.randn((PROBE_B, DIM), device=dev)
     poff = offsets[_probes(rng, PROBE_B, 3, 3, nl, dev).long()]
     kd, ki = PS.ivf_probe_scan(q, None, vecs, poff, torch.zeros_like(poff),
@@ -1649,7 +2014,9 @@ def phase_probe_kernel():
         f"{list(PROBE_LENS)}, bf16 store, B {PROBE_B}, (k, nprobe) in "
         f"{list(PROBE_CASES)}, sqeuclidean and ip; hot lists {PROBE_HOT} "
         f"probed by every query and the lists {list(PROBE_LENS_EMPTY)} at "
-        f"nprobe 4, k 10 and 512; an all-empty probe set; rtol {RTOL}, "
+        f"nprobe 4, k 10 and 512; D {list(PROBE_WIDE)} in both stores at "
+        f"k 10 and 512, nprobe 3 ({n_wide} cases); an all-empty probe set; "
+        f"rtol {RTOL}, "
         f"atol {ATOL}; merged top-k with the per-probe cap); max |kernel - "
         f"plain| {err_max:.3e}")
     del vecs, e_vecs
@@ -1898,7 +2265,7 @@ def main(argv):
     flat_stats = phase_kernel()
     pq_stats = phase_pq_kernel(smi)
     flash_stats = phase_flash_kernel(smi)
-    probe_stats = phase_probe_kernel()
+    probe_stats = phase_probe_kernel(smi)
     flat_launches = {m: None for m in MODES}
     pq_launches = {"exact": None, "packed": None}
     flash_launches = {"bf16": None, "f32": None}
@@ -1912,6 +2279,8 @@ def main(argv):
         phase_save_load(index, qb, chosen)
         del index
         torch.cuda.empty_cache()
+        hnsw_launches, hnsw_mode = phase_hnsw(x, qb, gt, exact, smi)
+        flat_launches[hnsw_mode] += hnsw_launches
         pq_launches = phase_ivfpq(x)
         del x
         flash_launches = phase_rerank()

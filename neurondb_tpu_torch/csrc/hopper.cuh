@@ -44,19 +44,20 @@ __device__ __forceinline__ Copier copier(int per_row) {
   return k;
 }
 
-// Rows [c0, min(c0 + kChunk, n)) of the [*, D] rows at `src` into a ring
-// stage of rows x_ld bytes apart: 16-byte cp.async copies (vec8: D * the
-// element size a multiple of 16 and `src` 16-byte aligned), else element
-// by element. Columns past D are not written.
+// Rows [c0, min(c0 + kChunk, n)), dims [d0, d0 + width) of the [*, D] rows
+// at `src` into a ring stage of rows x_ld bytes apart, width = k.per_row
+// pieces: 16-byte cp.async copies (vec8: D and d0 times the element size
+// multiples of 16 and `src` 16-byte aligned), else element by element.
+// Columns past the width are not written.
 template <int kChunk, typename T>
 __device__ __forceinline__ void stage_chunk(unsigned char* dst, const T* src,
                                            int c0, int n, int D, int x_ld,
-                                           bool vec8, const Copier& k) {
+                                           bool vec8, const Copier& k,
+                                           int d0 = 0) {
   const int rows = min(kChunk, n - c0);
-  const T* s = src + static_cast<long long>(c0) * D;
+  const T* s = src + static_cast<long long>(c0) * D + d0;
   int r = k.r0, c = k.c0;
   if (vec8) {
-    const unsigned char* sb = reinterpret_cast<const unsigned char*>(s);
     for (; r < rows; r += k.dr, c += k.dc) {
       if (c >= k.per_row) {
         c -= k.per_row;
@@ -64,7 +65,8 @@ __device__ __forceinline__ void stage_chunk(unsigned char* dst, const T* src,
         if (r >= rows) break;
       }
       cp_async16(dst + r * x_ld + c * 16,
-                 sb + (static_cast<long long>(r) * k.per_row + c) * 16);
+                 reinterpret_cast<const unsigned char*>(
+                     s + static_cast<long long>(r) * D) + c * 16);
     }
   } else {
     for (; r < rows; r += k.dr, c += k.dc) {

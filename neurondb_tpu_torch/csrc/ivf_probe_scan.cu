@@ -53,21 +53,25 @@
 // - per item, a query tile of W = 4, 8, 16 or 32 tuples, the narrowest
 //   that holds the item, so an item of 1-4 tuples does not pay for 32;
 //   the item's f32 queries and their |q|^2 sit in shared memory;
-// - the list streams through a ring of 64-row chunks in shared memory
-//   (3 stages for bf16, 2 for f32), filled by coalesced 16-byte cp.async
-//   copies (element copies where D % 8 or the store's alignment forbid)
-//   while the chunks before are scored; rows stay as stored and are
-//   widened on read; a row's stride is an odd number of 16-byte units, so
-//   the 8 rows of a quarter warp fall in different banks;
+// - the list streams through a ring in shared memory (3 stages for bf16, 2
+//   for f32) whose stage holds one 128-dim slab of a 64-row chunk, filled
+//   by coalesced 16-byte cp.async copies (element copies where D % 8 or the
+//   store's alignment forbid) while the slabs before are scored; rows stay
+//   as stored and are widened on read; a staged row's stride is an odd
+//   number of 16-byte units, so the 8 rows of a quarter warp fall in
+//   different banks. The register tile's sums carry across a chunk's slabs
+//   in d order, so each product and norm is the first kernel's fmaf chain
+//   at every D, and the ring's size does not grow with D;
 // - a register tile: 4 warps of 128 threads; a lane holds the products of
 //   R rows x Q queries (2 x 8 at W = 32, 1 x 2 at W = 4), its rows 32 apart
 //   and the queries broadcast, and loads R + 2Q 16-byte vectors for 8RQ
 //   fmaf (the first kernel loaded one value per two fmaf); one lane per row
 //   also sums |x|^2, so a row's norm is computed once per chunk; a warp
-//   whose queries are all padding skips the chunk;
-// - the products of chunk c go to one of two buffers while each warp
-//   selects from chunk c - 1's: one barrier a chunk, and the warps drift
-//   apart between barriers, so some multiply while others select;
+//   whose queries are all padding skips the slab;
+// - the products of chunk c go to one of two buffers, and at chunk c's
+//   first slab each warp selects from chunk c - 1's: one barrier a slab,
+//   and the warps drift apart between barriers, so some multiply while
+//   others select;
 // - selection, kp <= 16 (the main path's k 10): a query's 128 / W lanes
 //   each keep their 16 best pairs sorted in registers, take the candidates
 //   that go before the query's bound (the least of its lanes' kp-th
@@ -78,11 +82,15 @@
 //   (a 64-entry buffer per query, merged by rank when it fills). Both keep
 //   exact (distance, row) order. out[p, b, :] is written at the tuple's
 //   own place;
-// - two kernels per store type: tiles 4 and 8 without the wide tiles'
-//   registers (three blocks to an SM), tiles 16 and 32 (two).
+// - four kernels per store type: tiles 4 and 8 without the wide tiles'
+//   registers (three blocks to an SM), tiles 16 and 32 (two), each for
+//   D <= 128, where a chunk is one stage and its sums never outlive it,
+//   and for wider D.
 //
-// Limits: kp in [1, 512]; the wrapper picks the widest query tile whose
-// shared memory fits 227 KB; any D; bf16 and f32 stores.
+// Limits: kp in [1, 512]; bf16 and f32 stores; the wrapper picks the
+// widest query tile whose shared memory fits 227 KB. The queries are staged
+// at full width, so a 4-query tile fits up to D 9,940 (bf16 store) or
+// 8,980 (f32) at kp 512; wider D raises in the wrapper.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -105,6 +113,7 @@ namespace {
 constexpr int kWarps = 4;               // warps per block
 constexpr int kThreads = kWarps * 32;
 constexpr int kChunk = 64;              // list rows per ring stage
+constexpr int kSlab = 128;              // dims a ring stage holds of a row
 constexpr int kSeg = 512;               // the per-probe kp cap
 constexpr int kMaxTile = 32;            // queries per block at most
 using ndb::kRegK;                       // kp at most for lists in registers
@@ -129,7 +138,7 @@ struct Tile {
 struct Layout {
   int q_ld;                             // floats per staged query row
   int tile_sz;                          // floats of one chunk's products
-  int x_ld;                             // bytes per staged list row
+  int x_ld;                             // bytes per staged row (one slab)
   long long ring, q, tile, lk, lr, bk, br, qsq, xsq, nb, tk, tr, key, ord,
       cq, bytes;
 };
@@ -150,7 +159,7 @@ __host__ __device__ __forceinline__ Layout layout(int tq, int D, int kp,
                                                   int esize) {
   Layout L;
   L.q_ld = (((D + 3) / 4) | 1) * 4;
-  L.x_ld = (((D * esize + 15) / 16) | 1) * 16;
+  L.x_ld = ((((D < kSlab ? D : kSlab) * esize + 15) / 16) | 1) * 16;
   L.tile_sz = tq * kChunk;
   long long at = 0;
   L.ring = take(at, static_cast<long long>(stages_for(esize)) * kChunk * L.x_ld);
@@ -226,15 +235,24 @@ __device__ __forceinline__ float widen1(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
 
-// The products of one staged chunk: this warp's rows x queries into
-// tile[query][row]; with l2, |x|^2 of each row into xsq, once: by the
-// warps of query group i < kR, for their lanes' i-th rows. A warp whose
+// This warp's accumulators of one chunk (a lane's kR rows x kQ queries,
+// and with l2 the norm of its row i == qg for the warps of query group
+// qg < kR), zeroed before the chunk's first slab.
+template <int W>
+struct Acc {
+  float dot[Tile<W>::kR][Tile<W>::kQ];
+  float xs;
+};
+
+// The products of one staged slab, dims [d0, d0 + w) of the chunk's rows,
+// summed onto acc in d order: over a chunk's slabs each product and norm is
+// one fmaf chain over d = 0 .. D-1, the first kernel's. A warp whose
 // queries are all past the item's nq and that sums no norm does nothing.
 template <int W, typename T>
-__device__ __forceinline__ void chunk_dots(const unsigned char* stage,
-                                           int x_ld, const Smem& s, int buf,
-                                           int q_ld, int D, bool l2, int nq,
-                                           int warp, int lane) {
+__device__ __forceinline__ void slab_dots(const unsigned char* stage,
+                                          int x_ld, const Smem& s, int q_ld,
+                                          int d0, int w, bool l2, int nq,
+                                          int warp, int lane, Acc<W>& a) {
   using C = Tile<W>;
   const int qg = warp / C::kWR;
   const int r0 = (warp % C::kWR) * 32 + lane;         // rows r0 + 32 kWR i
@@ -245,15 +263,10 @@ __device__ __forceinline__ void chunk_dots(const unsigned char* stage,
 #pragma unroll
   for (int i = 0; i < C::kR; ++i)
     xr[i] = reinterpret_cast<const T*>(stage + (r0 + 32 * C::kWR * i) * x_ld);
-  float acc[C::kR][C::kQ];
-#pragma unroll
-  for (int i = 0; i < C::kR; ++i)
-#pragma unroll
-    for (int j = 0; j < C::kQ; ++j) acc[i][j] = 0.f;
-  float xs = 0.f;
-  const int D8 = D & ~7;
+  const float* qs = s.q + q0 * q_ld + d0;
+  const int w8 = w & ~7;
 #pragma unroll 4
-  for (int d = 0; d < D8; d += 8) {
+  for (int d = 0; d < w8; d += 8) {
     float xv[C::kR][8];
 #pragma unroll
     for (int i = 0; i < C::kR; ++i) widen8(xr[i] + d, xv[i]);
@@ -262,44 +275,59 @@ __device__ __forceinline__ void chunk_dots(const unsigned char* stage,
       for (int i = 0; i < C::kR; ++i)
         if (i == qg) {
 #pragma unroll
-          for (int e = 0; e < 8; ++e) xs = fmaf(xv[i][e], xv[i][e], xs);
+          for (int e = 0; e < 8; ++e) a.xs = fmaf(xv[i][e], xv[i][e], a.xs);
         }
     }
 #pragma unroll
     for (int j = 0; j < C::kQ; ++j) {
-      const float* qp = s.q + (q0 + j) * q_ld + d;
-      const float4 a = *reinterpret_cast<const float4*>(qp);
-      const float4 b = *reinterpret_cast<const float4*>(qp + 4);
-      const float qv[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+      const float* qp = qs + j * q_ld + d;
+      const float4 u = *reinterpret_cast<const float4*>(qp);
+      const float4 v = *reinterpret_cast<const float4*>(qp + 4);
+      const float qv[8] = {u.x, u.y, u.z, u.w, v.x, v.y, v.z, v.w};
 #pragma unroll
       for (int i = 0; i < C::kR; ++i)
 #pragma unroll
-        for (int e = 0; e < 8; ++e) acc[i][j] = fmaf(qv[e], xv[i][e], acc[i][j]);
+        for (int e = 0; e < 8; ++e)
+          a.dot[i][j] = fmaf(qv[e], xv[i][e], a.dot[i][j]);
     }
   }
-  for (int d = D8; d < D; ++d) {
+  for (int d = w8; d < w; ++d) {
     float xv[C::kR];
 #pragma unroll
     for (int i = 0; i < C::kR; ++i) xv[i] = widen1(xr[i] + d);
     if (sums_x) {
 #pragma unroll
       for (int i = 0; i < C::kR; ++i)
-        if (i == qg) xs = fmaf(xv[i], xv[i], xs);
+        if (i == qg) a.xs = fmaf(xv[i], xv[i], a.xs);
     }
 #pragma unroll
     for (int j = 0; j < C::kQ; ++j) {
-      const float qv = s.q[(q0 + j) * q_ld + d];
+      const float qv = qs[j * q_ld + d];
 #pragma unroll
-      for (int i = 0; i < C::kR; ++i) acc[i][j] = fmaf(qv, xv[i], acc[i][j]);
+      for (int i = 0; i < C::kR; ++i) a.dot[i][j] = fmaf(qv, xv[i], a.dot[i][j]);
     }
   }
+}
+
+// A chunk's sums, after its last slab: the products to tile[query][row] of
+// buffer buf; with l2, |x|^2 of each row to xsq, once.
+template <int W>
+__device__ __forceinline__ void store_dots(const Smem& s, int buf, bool l2,
+                                           int nq, int warp, int lane,
+                                           const Acc<W>& a) {
+  using C = Tile<W>;
+  const int qg = warp / C::kWR;
+  const int r0 = (warp % C::kWR) * 32 + lane;
+  const int q0 = qg * C::kQ;
+  const bool sums_x = l2 && qg < C::kR;
+  if (q0 >= nq && !sums_x) return;
 #pragma unroll
   for (int i = 0; i < C::kR; ++i)
 #pragma unroll
     for (int j = 0; j < C::kQ; ++j)
       s.tile[buf * s.tile_sz + (q0 + j) * kChunk + r0 + 32 * C::kWR * i] =
-          acc[i][j];
-  if (sums_x) s.xsq[buf * kChunk + r0 + 32 * C::kWR * qg] = xs;
+          a.dot[i][j];
+  if (sums_x) s.xsq[buf * kChunk + r0 + 32 * C::kWR * qg] = a.xs;
 }
 
 // The distance of query qi to row r of the chunk whose products are in
@@ -422,7 +450,9 @@ __device__ __forceinline__ void chunk_select(const Smem& s, int buf, int kp,
 }
 
 // One item: sorted tuples tup[0, nq), nq <= W, all over rows [off, off + n).
-template <int W, typename T, bool kReg>
+// kSlabs: D > kSlab, a chunk staged in several slabs; without it a chunk is
+// one stage, and the walk's chunk, slab and sums are known at compile time.
+template <int W, typename T, bool kReg, bool kSlabs>
 __device__ __forceinline__ void scan_item(const Smem& s, const Layout& L,
                                           const float* __restrict__ q,
                                           const T* __restrict__ vecs,
@@ -433,17 +463,36 @@ __device__ __forceinline__ void scan_item(const Smem& s, const Layout& L,
   constexpr int kStages = stages_for(sizeof(T));
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const T* src = vecs + static_cast<long long>(off) * D;
-  const ndb::Copier cp =
-      ndb::copier<kThreads>(vec8 ? D * static_cast<int>(sizeof(T)) / 16 : D);
   const int nch = (n + kChunk - 1) / kChunk;
+  // the ring holds one slab of kSlab dims of a chunk's rows a stage: step
+  // k of the list's walk is slab k % nsl of chunk k / nsl
+  const int nsl = kSlabs ? (D + kSlab - 1) / kSlab : 1, nst = nch * nsl;
+  const int sw = min(D, kSlab);           // dims of every slab but the last
+  const int lw = D - (nsl - 1) * kSlab;   // dims of the last
+  // the next step to stage (its copier, chunk and slab made anew each
+  // time, so the loop holds no more registers than with whole rows; a full
+  // slab's copier folds to shifts)
+  int ik = 0;
+  auto stage_next = [&]() {
+    if (ik < nst) {
+      const int ic = kSlabs ? ik / nsl : ik, isl = ik - ic * nsl;
+      const int w = isl == nsl - 1 ? lw : sw;
+      constexpr int kFull = kSlab * static_cast<int>(sizeof(T)) / 16;
+      const int per = vec8 ? w * static_cast<int>(sizeof(T)) / 16 : w;
+      const ndb::Copier cp =
+          per == kFull ? ndb::copier<kThreads>(kFull)
+                       : (per == kSlab ? ndb::copier<kThreads>(kSlab)
+                                       : ndb::copier<kThreads>(per));
+      ndb::stage_chunk<kChunk, T>(s.ring + (ik % kStages) * kChunk * L.x_ld,
+                                  src, ic * kChunk, n, D, L.x_ld, vec8, cp,
+                                  isl * kSlab);
+      ++ik;
+    }
+    ndb::cp_async_commit();
+  };
   // the ring's first stages start filling before the queries are staged
 #pragma unroll
-  for (int c = 0; c < kStages - 1; ++c) {
-    if (c < nch)
-      ndb::stage_chunk<kChunk, T>(s.ring + c * kChunk * L.x_ld, src,
-                                  c * kChunk, n, D, L.x_ld, vec8, cp);
-    ndb::cp_async_commit();
-  }
+  for (int k = 0; k < kStages - 1; ++k) stage_next();
   // queries, |q|^2 (the first kernel's lane-strided partials and xor
   // butterfly), empty lists
   for (int j = warp; j < nq; j += kWarps) {
@@ -472,9 +521,10 @@ __device__ __forceinline__ void scan_item(const Smem& s, const Layout& L,
   }
   RegList regs;
   if constexpr (kReg) ndb::reg_fill(regs, FLT_MAX);
-  // chunk c's products go to buffer c & 1 while the warp selects from
-  // chunk c - 1's: one barrier a chunk, and the warps of a block drift
-  // apart between barriers, so some multiply while others select
+  // chunk c's products go to buffer c & 1, and at chunk c's first slab
+  // each warp selects from chunk c - 1's: one barrier a slab, and the warps
+  // of a block drift apart between barriers, so some multiply while others
+  // select
   auto select = [&](int c) {
     if (NDB_PROBE_CUT >= 1) return;
     if constexpr (kReg)
@@ -483,20 +533,28 @@ __device__ __forceinline__ void scan_item(const Smem& s, const Layout& L,
     else
       chunk_select<W>(s, c & 1, kp, c * kChunk, n, off, nq, ip, warp, lane);
   };
-  for (int c = 0; c < nch; ++c) {
-    ndb::cp_async_wait<kStages - 2>();                // chunk c has landed
+  Acc<W> acc;
+  for (int k = 0; k < nst; ++k) {
+    const int c = kSlabs ? k / nsl : k, sl = k - c * nsl;
+    ndb::cp_async_wait<kStages - 2>();                // step k has landed
     // ... for every thread; chunk c - 1's products and norms are complete,
     // and chunk c - 2's buffers are read by all
     __syncthreads();
-    if (c + kStages - 1 < nch)
-      ndb::stage_chunk<kChunk, T>(
-          s.ring + ((c + kStages - 1) % kStages) * kChunk * L.x_ld, src,
-          (c + kStages - 1) * kChunk, n, D, L.x_ld, vec8, cp);
-    ndb::cp_async_commit();
-    if (NDB_PROBE_CUT < 2)
-      chunk_dots<W, T>(s.ring + (c % kStages) * kChunk * L.x_ld, L.x_ld, s,
-                       c & 1, L.q_ld, D, !ip, nq, warp, lane);
-    if (c > 0) select(c - 1);
+    stage_next();
+    if (sl == 0) {
+      if (c > 0) select(c - 1);
+#pragma unroll
+      for (int i = 0; i < Tile<W>::kR; ++i)
+#pragma unroll
+        for (int j = 0; j < Tile<W>::kQ; ++j) acc.dot[i][j] = 0.f;
+      acc.xs = 0.f;
+    }
+    if (NDB_PROBE_CUT < 2) {
+      slab_dots<W, T>(s.ring + (k % kStages) * kChunk * L.x_ld, L.x_ld, s,
+                      L.q_ld, sl * kSlab, sl == nsl - 1 ? lw : sw, !ip, nq,
+                      warp, lane, acc);
+      if (sl == nsl - 1) store_dots<W>(s, c & 1, !ip, nq, warp, lane, acc);
+    }
   }
   __syncthreads();                                    // the last chunk's norms
   select(nch - 1);
@@ -528,7 +586,7 @@ __device__ __forceinline__ void scan_item(const Smem& s, const Layout& L,
 }
 
 // An item at the narrowest query tile that holds it.
-template <typename T, bool kReg, int kMaxW>
+template <typename T, bool kReg, int kMaxW, bool kSlabs>
 __device__ __forceinline__ void scan_width(const Smem& s, const Layout& L,
                                            const float* __restrict__ q,
                                            const T* __restrict__ vecs,
@@ -537,25 +595,25 @@ __device__ __forceinline__ void scan_width(const Smem& s, const Layout& L,
                                            int* out_i, int B, int nprobe,
                                            int D, int kp, bool ip, bool vec8) {
   if (nq <= 4) {
-    scan_item<4, T, kReg>(s, L, q, vecs, tup, nq, off, n, out_d, out_i, B,
-                          nprobe, D, kp, ip, vec8);
+    scan_item<4, T, kReg, kSlabs>(s, L, q, vecs, tup, nq, off, n, out_d,
+                                  out_i, B, nprobe, D, kp, ip, vec8);
   } else if (kMaxW <= 8 || nq <= 8) {
-    scan_item<8, T, kReg>(s, L, q, vecs, tup, nq, off, n, out_d, out_i, B,
-                          nprobe, D, kp, ip, vec8);
+    scan_item<8, T, kReg, kSlabs>(s, L, q, vecs, tup, nq, off, n, out_d,
+                                  out_i, B, nprobe, D, kp, ip, vec8);
   } else if constexpr (kMaxW > 8) {
     if (nq <= 16)
-      scan_item<16, T, kReg>(s, L, q, vecs, tup, nq, off, n, out_d, out_i, B,
-                             nprobe, D, kp, ip, vec8);
+      scan_item<16, T, kReg, kSlabs>(s, L, q, vecs, tup, nq, off, n, out_d,
+                                     out_i, B, nprobe, D, kp, ip, vec8);
     else
-      scan_item<32, T, kReg>(s, L, q, vecs, tup, nq, off, n, out_d, out_i, B,
-                             nprobe, D, kp, ip, vec8);
+      scan_item<32, T, kReg, kSlabs>(s, L, q, vecs, tup, nq, off, n, out_d,
+                                     out_i, B, nprobe, D, kp, ip, vec8);
   }
 }
 
 // kMaxW: the widest query tile the kernel holds. Tiles of 4 and 8 (small
 // batches) take a kernel without the wide tiles' registers, three blocks
-// to an SM; tiles of 16 and 32, two.
-template <typename T, int kMaxW>
+// to an SM; tiles of 16 and 32, two. kSlabs: D > kSlab (scan_item).
+template <typename T, int kMaxW, bool kSlabs>
 __global__ void __launch_bounds__(kThreads, kMaxW <= 8 ? 3 : 2)
 probe_scan_kernel(const float* __restrict__ q, const void* __restrict__ store,
                   const long long* __restrict__ keys,
@@ -596,11 +654,13 @@ probe_scan_kernel(const float* __restrict__ q, const void* __restrict__ store,
     } else {
       const long long* tup = s.ord + r0;
       if (kp <= kRegK)
-        scan_width<T, true, kMaxW>(s, L, q, vecs, tup, nq, off, n, out_d,
-                                   out_i, B, nprobe, D, kp, ip, vec8);
+        scan_width<T, true, kMaxW, kSlabs>(s, L, q, vecs, tup, nq, off, n,
+                                           out_d, out_i, B, nprobe, D, kp, ip,
+                                           vec8);
       else
-        scan_width<T, false, kMaxW>(s, L, q, vecs, tup, nq, off, n, out_d,
-                                    out_i, B, nprobe, D, kp, ip, vec8);
+        scan_width<T, false, kMaxW, kSlabs>(s, L, q, vecs, tup, nq, off, n,
+                                            out_d, out_i, B, nprobe, D, kp, ip,
+                                            vec8);
     }
     r0 = r1;
     __syncthreads();                                  // shared memory reused
@@ -613,14 +673,22 @@ using KernelFn = void (*)(const float*, const void*, const long long*,
                          const long long*, float*, int*, int, int, int, int,
                          int, int, int);
 
-// The kernel for a query tile, its shared memory set to `smem` bytes.
-KernelFn kernel_for(int tq, bool bf16, size_t smem, cudaError_t* err) {
+template <typename T, bool kSlabs>
+KernelFn kernel_of(int tq) {
+  return tq <= 8 ? probe_scan_kernel<T, 8, kSlabs>
+                 : probe_scan_kernel<T, 32, kSlabs>;
+}
+
+// The kernel for a query tile and width, its shared memory set to `smem`
+// bytes.
+KernelFn kernel_for(int tq, int D, bool bf16, size_t smem, cudaError_t* err) {
+  const bool slabs = D > kSlab;
   KernelFn f;
   if (bf16)
-    f = tq <= 8 ? probe_scan_kernel<__nv_bfloat16, 8>
-                : probe_scan_kernel<__nv_bfloat16, 32>;
+    f = slabs ? kernel_of<__nv_bfloat16, true>(tq)
+              : kernel_of<__nv_bfloat16, false>(tq);
   else
-    f = tq <= 8 ? probe_scan_kernel<float, 8> : probe_scan_kernel<float, 32>;
+    f = slabs ? kernel_of<float, true>(tq) : kernel_of<float, false>(tq);
   *err = cudaFuncSetAttribute(reinterpret_cast<const void*>(f),
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
@@ -641,7 +709,7 @@ int ivf_probe_scan_occupancy(int tq, int D, int kp, int store_bf16) {
   const size_t smem =
       static_cast<size_t>(ivf_probe_scan_smem_bytes(tq, D, kp, store_bf16));
   cudaError_t err;
-  const KernelFn f = kernel_for(tq, store_bf16 != 0, smem, &err);
+  const KernelFn f = kernel_for(tq, D, store_bf16 != 0, smem, &err);
   int blocks = 0;
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -668,7 +736,7 @@ int ivf_probe_scan(const void* q, const void* vecs, const void* keys,
   const size_t smem =
       static_cast<size_t>(ivf_probe_scan_smem_bytes(tq, D, kp, store_bf16));
   cudaError_t err;
-  const KernelFn f = kernel_for(tq, store_bf16 != 0, smem, &err);
+  const KernelFn f = kernel_for(tq, D, store_bf16 != 0, smem, &err);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long n_tuples = static_cast<long long>(B) * nprobe;
   const dim3 grid(static_cast<unsigned>((n_tuples + tq - 1) / tq));

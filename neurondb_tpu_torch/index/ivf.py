@@ -178,7 +178,12 @@ class IVFFlatIndex(BaseIndex):
                  metric: str = "l2", ids=None, seed: int = 0,
                  kmeans_iters: Optional[int] = None,
                  sample_cap: Optional[int] = None,
-                 spherical: Optional[bool] = None, device=None):
+                 spherical: Optional[bool] = None, device=None,
+                 device_vectors: Optional[torch.Tensor] = None):
+        """``device_vectors``: the same corpus already on ``device``, f32
+        [n, d] (normalised where the metric works on the unit sphere);
+        the build then reads it instead of uploading ``vectors`` again
+        (the HNSW bulk build hands over its resident corpus)."""
         cfg = get_config()
         self.device = resolve_device(device)
         x = np.asarray(vectors, np.float32)
@@ -201,7 +206,19 @@ class IVFFlatIndex(BaseIndex):
         # ---- train: sampled Lloyd's on the device ----
         cap = int(sample_cap if sample_cap is not None
                   else max(cfg.ivf_sample_cap, self.nlists * 100))
-        xdev = torch.from_numpy(x).to(self.device)
+        if device_vectors is None:
+            xdev = torch.from_numpy(x).to(self.device)
+        elif (tuple(device_vectors.shape) != (n, d)
+              or device_vectors.dtype != torch.float32
+              or device_vectors.device.type != self.device.type
+              or self.device.index not in (None,
+                                           device_vectors.device.index)):
+            raise ValueError(
+                f"device_vectors must be f32 {(n, d)} on {self.device}, got "
+                f"{device_vectors.dtype} {tuple(device_vectors.shape)} on "
+                f"{device_vectors.device}")
+        else:
+            xdev = device_vectors
         if n <= cap:
             sample = xdev
         else:

@@ -177,9 +177,10 @@ def _lib() -> ctypes.CDLL:
 
 
 def pick_tile(lib: ctypes.CDLL, D: int, kp: int, bf16: bool) -> int:
-    """The widest query tile of ``TILES`` whose shared memory (ring,
-    queries, products; for kp > 16 the top-kp lists and buffers) fits
-    227 KB."""
+    """The widest query tile of ``TILES`` whose shared memory (a ring of
+    128-dim slabs, the full-width queries, products; for kp > 16 the
+    top-kp lists and buffers) fits 227 KB: a 4-query tile fits every D up
+    to 9,940 (bf16 store) or 8,980 (f32) at kp 512, and wider D raises."""
     for tq in sorted(TILES, reverse=True):
         if lib.ivf_probe_scan_smem_bytes(tq, D, kp, int(bf16)) <= SMEM_MAX:
             return tq

@@ -18,8 +18,10 @@ D, kp)``. Then, on one card:
 - the same bits from both kernels (distances and rows, ``torch.equal``)
   over the cases of ``chip_smoke.phase_probe_kernel`` (ragged lists, B 37,
   k 1 to 1000, both metrics, hot lists, adjacent empty lists), an f32
-  store, D 100 (scalar loads) and both headlines (16,384 x nprobe 8 and
-  1,024 x nprobe 4 on 1M bf16 rows in 1,024 lists); any difference fails;
+  store, D 100 (scalar loads), D 384, 768, 1024 and 2048 in both stores
+  at k 10 and 512 (rows staged in 128-dim slabs) and both headlines
+  (16,384 x nprobe 8 and 1,024 x nprobe 4 on 1M bf16 rows in 1,024
+  lists); any difference fails;
 - both kernels timed in alternating turns at the two headlines: the new
   one through its wrapper (work table + kernel) and alone on a built
   table, the old one straight through ctypes; with ``--stages`` also the
@@ -184,7 +186,9 @@ def main(argv):
 
         rng = np.random.default_rng(5)
         for dtype, dim in ((torch.bfloat16, CS.DIM), (torch.float32, CS.DIM),
-                           (torch.bfloat16, 100)):
+                           (torch.bfloat16, 100),
+                           *((dt, d) for d in (*CS.PROBE_WIDE, 2048)
+                             for dt in (torch.bfloat16, torch.float32))):
             vecs, offsets, counts = CS._layout(rng, CS.PROBE_LENS, dim, dtype,
                                                dev)
             nl = len(CS.PROBE_LENS)

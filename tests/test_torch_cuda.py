@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from neurondb_tpu_torch import configure, get_config
+from neurondb_tpu_torch.index.hnsw import HNSWIndex
 from neurondb_tpu_torch.index.ivf import IVFFlatIndex
 from neurondb_tpu_torch.index.ivfpq import IVFPQIndex
 from neurondb_tpu_torch.ml import bert as TB
@@ -431,10 +432,15 @@ def _probe_inputs(rng, dev, b, nprobe, dim):
 @pytest.mark.parametrize("k,nprobe,dim", [(1, 4, 128), (10, 6, 128),
                                           (100, 3, 128), (512, 5, 128),
                                           (1000, 1, 128), (1000, 3, 128),
-                                          (10, 4, 100)])
+                                          (10, 4, 100), (10, 4, 384),
+                                          (512, 3, 384), (10, 4, 768),
+                                          (512, 3, 768), (10, 4, 1024),
+                                          (512, 3, 1024), (10, 4, 2048),
+                                          (512, 3, 2048)])
 def test_probe_kernel_matches_plain(dev, store, metric, k, nprobe, dim):
     """The probe kernel against probe_scan_plain on ragged lists, B = 37
-    (no multiple of 16); dim 100 takes the scalar loads. Partials allclose
+    (no multiple of 16); dim 100 takes the scalar loads, dims 384-2048
+    stage their rows in 128-dim slabs. Partials allclose
     and rows equal away from near-ties; the merged top-k too, with the
     per-probe cap and the padding past nprobe * kp."""
     rng = np.random.default_rng(k + nprobe + dim)
@@ -463,6 +469,34 @@ def test_probe_kernel_matches_plain(dev, store, metric, k, nprobe, dim):
     assert torch.equal(mi < 0, wi < 0)
     if k > nprobe * kp:
         assert bool((mi[:, nprobe * kp:] == -1).all())
+
+
+# the widest D whose 4-query tile fits SMEM_MAX at kp 512, by the kernel's
+# shared-memory layout: full-width f32 queries, a ring of 128-dim slabs
+PROBE_WIDEST = {True: 9940, False: 8980}
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+def test_probe_pick_tile_wide_d(dev, bf16):
+    """pick_tile finds a tile at D 2048 and a 4-query tile at the widest D
+    at kp 512, and one dim past it raises, as the wrapper does there
+    before any launch."""
+    lib = PS._lib()
+    widest = PROBE_WIDEST[bf16]
+    assert PS.pick_tile(lib, 2048, 512, bf16) in PS.TILES
+    assert PS.pick_tile(lib, widest, 512, bf16) == 4
+    with pytest.raises(ValueError, match="do not fit"):
+        PS.pick_tile(lib, widest + 1, 512, bf16)
+    store = torch.bfloat16 if bf16 else torch.float32
+    q = torch.zeros((2, widest + 1), device=dev)
+    vecs = torch.zeros((64, widest + 1), device=dev, dtype=store)
+    off = torch.zeros((2, 1), dtype=torch.int32, device=dev)
+    cnt = torch.full((2, 1), 64, dtype=torch.int32, device=dev)
+    before = PS.LAUNCHES
+    with pytest.raises(ValueError, match="do not fit"):
+        PS.probe_scan(q, vecs, off, cnt, kp=512, max_segs=1,
+                      metric="sqeuclidean")
+    assert PS.LAUNCHES == before
 
 
 def test_probe_kernel_empty_probes(dev):
@@ -557,3 +591,50 @@ def test_probe_work_table_on_card_matches_cpu(dev):
         torch.cuda.set_sync_debug_mode("default")
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("metric", ["l2", "cosine", "ip"])
+def test_hnsw_search_on_card_matches_cpu(dev, metric):
+    """One HNSW state (a bulk build on the CPU, carried with from_state)
+    searched on the card and on the CPU, f32 store on both: ids equal on
+    >= 0.99 of entries; the incremental state's descent route too."""
+    rng = np.random.default_rng(7)
+    centers = rng.standard_normal((24, 32)).astype(np.float32) * 3
+    x = (centers[rng.integers(0, 24, 5000)]
+         + rng.standard_normal((5000, 32))).astype(np.float32)
+    q = x[:300] + 0.1 * rng.standard_normal((300, 32)).astype(np.float32)
+    bulk = HNSWIndex(x, m=16, metric=metric, seed=0, build_mode="bulk",
+                     device="cpu")
+    incr = HNSWIndex(x[:1500], m=8, ef_construction=64, metric=metric,
+                     seed=0, build_mode="incremental", device="cpu")
+    configure(store_dtype="float32")
+    try:
+        for cpu in (bulk, incr):
+            arrays, meta = cpu._state()
+            arrays = {k: (v.numpy() if torch.is_tensor(v) else v)
+                      for k, v in arrays.items()}
+            meta = dict(meta, metric=metric, dim=32)
+            gpu = HNSWIndex.from_state(arrays, meta, device="cuda")
+            assert gpu._nbr0.device.type == "cuda"
+            for ef in (16, 64):
+                gd, gi = gpu.search(q, k=10, ef=ef)
+                cd, ci = cpu.search(q, k=10, ef=ef)
+                assert float((gi == ci).mean()) >= 0.99, (ef, metric)
+    finally:
+        get_config().reset("store_dtype")
+
+
+def test_hnsw_bulk_build_on_card_runs_grouped_kernel(dev, monkeypatch):
+    """The bulk build's IVF bootstrap (threshold moved below the corpus)
+    launches the grouped scan kernel on the card; the built index finds
+    the corpus rows' own ids."""
+    import neurondb_tpu_torch.index.hnsw as TH
+    monkeypatch.setattr(TH, "EXACT_KNN_MAX_ROWS", 5000)
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((8000, 64)).astype(np.float32)
+    before = G.LAUNCHES
+    idx = HNSWIndex(x, m=16, seed=0, build_mode="bulk", device="cuda")
+    assert G.LAUNCHES > before
+    assert idx._vecs.dtype == torch.bfloat16
+    _, ids = idx.search(x[:500], k=1, ef=64)
+    assert float((ids[:, 0] == np.arange(500)).mean()) >= 0.99

@@ -348,3 +348,25 @@ def test_cpu_tensors_never_launch_probe_scan():
     d, rows = PS.ivf_probe_scan(q, None, vecs, poff, pcnt, k=5, max_segs=2)
     assert PS.LAUNCHES == before == 0
     assert d.device.type == "cpu" and rows.shape == (20, 5)
+
+
+def test_hnsw_imports_without_jax():
+    """The HNSW module loads where jax and the JAX package cannot be
+    imported (blocked from sys.modules' finders), and loads neither."""
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'neurondb_tpu'):\n"
+        "            raise ImportError(name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "from neurondb_tpu_torch.index import hnsw\n"
+        "from neurondb_tpu_torch import HNSWIndex\n"
+        "assert HNSWIndex is hnsw.HNSWIndex\n"
+        "print(hnsw.EXACT_KNN_MAX_ROWS, sorted(m for m in sys.modules if "
+        "m.split('.')[0] in ('jax', 'neurondb_tpu')))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "20000 []"
