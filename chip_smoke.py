@@ -117,6 +117,36 @@ the kernel reads. After 5, on its index, the probe route
 route at batch 16,384 and 1,024, launches, a profile at both batches and
 one of the grouped route at batch 1,024.
 
+After 8 (IVF-PQ) and before 11, on 5's corpus, two phases:
+
+- quantized flat (``BASELINE.json`` config 3): ``topk_smallest`` and
+  ``topk_largest`` on the card against a stable sort on tied integer
+  rows; ``quantize`` on the card against the CPU's, every bit, in all ten
+  formats on 4,096 rows; the IVF coarse top-k ([16,384, 1,024], n 4 and
+  16) before (``torch.topk``) and after the tie repair, in turns;
+  ``QuantizedFlatIndex(x, fmt, metric="ip")`` for int8 and f16 (and
+  binary with l2, printed without a bar), originals kept, k 10, rerank 8,
+  on 1,024 queries: build seconds, ``compression_bytes`` and the device
+  memory held, recall@10 against exact ip from ``FlatIndex`` (fails under
+  0.95 int8 / 0.99 f16), QPS (median of 3 reps after a warm one); fails
+  on an id twice in a row or a distance off -q.x of its stored row by
+  more than 1e-5 of |q||x|;
+- hybrid (``BASELINE.json`` config 4 as ``bench.py:204-224`` runs it):
+  200,000 documents ``topic{i % 64} item {i} cluster word{i % 64}``,
+  ``IVFFlatIndex(x[:200000], nlists=512)`` and ``BM25Index`` (the hashed
+  build; tokenizer and postings seconds), 512 queries from
+  ``default_rng(3)``; ``hybrid_search_batch`` and ``HybridSearcher`` at
+  k 10, nprobe 8, candidates 100: QPS (median of 3), self-hit (fails
+  under 0.99), peak memory, the grouped kernel's launches; fails when the
+  two searchers' id sets differ, when ``scores_batch`` on the card
+  differs in any bit from the host oracle on 64 queries, or when host
+  fusion (``device=False``) and the card's differ past a near-tie (fused
+  scores within 1e-6 of the k-th; each case printed); one served batch
+  profiled, and its ANN, BM25 and fusion stages one by one; then a
+  ``Collection(index="ivfflat")`` of 20,000 rows on the card through
+  ``planned_search`` (ann, fts and hybrid routes; the ann route returns
+  the query's own id first).
+
 Any failed check ends the run with a non-zero exit. The line before the
 last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -203,10 +233,25 @@ HNSW_DIST_RTOL = 1e-3      # returned distance vs its row's own distance
 # ... plus this share of |q|^2 + |x|^2, where the f32 expansion rounds:
 # 3.4x the largest reading, 2.9e-7 (NVIDIA H100 80GB HBM3, 700 W)
 HNSW_TERMS_TOL = 1e-6
-# bootstrap scan vs plain, absolute: 4.1x the largest reading at its
-# self-hits (d ~ 0 beside terms ~ 2,000), 7.3e-4 (the same card)
-HNSW_BOOT_ATOL = 3e-3
+# the grouped scan vs plain where the queries are corpus rows (the HNSW
+# bootstrap, the hybrid ANN), absolute: 4.1x the largest reading at the
+# bootstrap's self-hits (d ~ 0 beside terms ~ 2,000), 7.3e-4 (the same
+# card)
+SELF_QUERY_ATOL = 3e-3
 
+# quantized flat (BASELINE.json config 3) on the main path's corpus
+QF_NQ, QF_RERANK = 1024, 8
+QF_SAMPLE = 4096          # rows of the quantize bit check
+# a returned ip distance against -q.x of its stored row, in f64 on the
+# host: a share of |q||x| (f32 GEMMs of 128 products)
+QF_DIST_TOL = 1e-5
+# hybrid (BASELINE.json config 4) as bench.py:204-224 runs it
+HYBRID_DOCS, HYBRID_NLISTS, HYBRID_NQ = 200_000, 512, 512
+HYBRID_NPROBE, HYBRID_C = 8, 100
+# host fusion sums in Python floats, the card's in f32: documents within
+# this of the k-th fused score may swap between the two
+HYBRID_TIE_TOL = 1e-6
+COLLECTION_ROWS = 20_000
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -1171,11 +1216,13 @@ def _hnsw_check_rows(label, q, d, ids, index):
     return worst
 
 
-def _check_bootstrap_scan(qpad, vecs, toff, tcnt, kw):
-    """The grouped kernel at the HNSW bootstrap's shape against its plain
-    version, at phase_kernel's relative tolerances with HNSW_BOOT_ATOL as
-    the absolute one; prints the readings first, and fails unless a
-    wrong-row control fails too. Returns max |kernel - plain|."""
+def _check_self_query_scan(tag, label, qpad, vecs, toff, tcnt, kw):
+    """The grouped kernel against its plain version on a scan whose
+    queries are corpus rows, at the shape and arguments the path gave it
+    (the HNSW bootstrap's, the hybrid ANN's): phase_kernel's relative
+    tolerances with SELF_QUERY_ATOL as the absolute one; prints the
+    readings first, and fails unless a wrong-row control fails too.
+    Returns max |kernel - plain|."""
     import torch
     from neurondb_tpu_torch.ops.kernels import ivf_scan_grouped as G
     kd, ki = G.grouped_probe_scan(qpad, vecs, toff, tcnt, **kw)
@@ -1183,11 +1230,10 @@ def _check_bootstrap_scan(qpad, vecs, toff, tcnt, kw):
                                   **dict(kw, kp=kw["kp"] + 1))
     if kd.is_cuda:
         torch.cuda.synchronize()
-    label = "hnsw bootstrap scan"
     # the queries are corpus rows: slot 0 of each tuple of a query's own
     # list is its self-hit at d ~ 0, where the f32 rounding of
     # |q|^2 + |x|^2 - 2 q.x is relative to the terms, not to d; the
-    # absolute tolerance there is HNSW_BOOT_ATOL, a few times the reading
+    # absolute tolerance there is SELF_QUERY_ATOL, a few times the reading
     kp = kw["kp"]
     qt = kw["qt"]
     qrows = qpad.reshape(kd.shape[0], qt, -1)
@@ -1203,19 +1249,21 @@ def _check_bootstrap_scan(qpad, vecs, toff, tcnt, kw):
         else RTOL
     past = (diff - rtol * pd[..., :kp].abs())[rest]
     rest_err = max(float(past.max()), 0.0) if past.numel() else 0.0
-    log(f"[hnsw] bootstrap grouped scan vs plain: at the "
+    log(f"[{tag}] {label} vs plain: at the "
         f"{int(self_hit.sum())} self-hits max |kernel - plain| "
         f"{self_err:.3e}; at the other filled slots at most {rest_err:.3e} "
-        f"past rtol {rtol:.3e} (atol {HNSW_BOOT_ATOL:.0e})")
+        f"past rtol {rtol:.3e} (atol {SELF_QUERY_ATOL:.0e})")
+    if not self_hit.any():
+        fail(f"{label}: no self-hit to hold the control to")
     if kw["pos_bits"]:
         def compare(ids):
             return _compare_packed(kd, ids, pd, pi, qpad, vecs, kw["metric"],
                                    qt, kw["pos_bits"], label,
                                    positional=not kw["block_min"],
-                                   atol=HNSW_BOOT_ATOL)
+                                   atol=SELF_QUERY_ATOL)
     else:
         def compare(ids):
-            return _compare(kd, ids, pd, pi, label, atol=HNSW_BOOT_ATOL)
+            return _compare(kd, ids, pd, pi, label, atol=SELF_QUERY_ATOL)
     err = compare(ki)
     # wrong-row control: the self-hit and the next row trade places
     swapped = ki.clone()
@@ -1283,7 +1331,8 @@ def phase_hnsw(x, qb, gt, exact, smi):
     # the grouped kernel at the bootstrap's shape against its plain version
     (qpad, vecs, toff, tcnt), kw = seen.pop("scan")
     probes, counts = seen.pop("probes")
-    err = _check_bootstrap_scan(qpad, vecs, toff, tcnt, kw)
+    err = _check_self_query_scan("hnsw", "bootstrap grouped scan", qpad,
+                                 vecs, toff, tcnt, kw)
     kp = kw["kp"]
     nlists = counts.shape[0]
     tuples, rows, uniq = _probe_work(probes, counts, nlists)
@@ -1598,6 +1647,324 @@ def phase_ivfpq(x):
         fail(f"the grouped IVF-PQ searches did not all go through the kernel "
              f"({launches} launches, {n_grouped} grouped searches)")
     return per_mode
+
+
+def _tie_topk_times(smi):
+    """The IVF coarse top-k at the main path's shape before and after the
+    tie repair: ``torch.topk`` (the old ``topk_smallest``) against the
+    tie-ruled ``topk_smallest`` (one stable sort at this width), in
+    turns, at n 4 and 16."""
+    import torch
+    from neurondb_tpu_torch.ops import topk as TK
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    s = torch.randn(BATCH, NLISTS, generator=gen, device="cuda")
+    out = {}
+    for n in (4, 16):
+        t = _turns_ms({
+            "torch.topk": lambda: torch.topk(s, n, dim=-1, largest=False,
+                                             sorted=True),
+            "topk_smallest": lambda: TK.topk_smallest(s, n)}, 20, 7)
+        out[n] = t
+        log(f"[quantized] coarse top-k [{BATCH}, {NLISTS}] n {n}: "
+            f"torch.topk (before the tie repair) {t['torch.topk']:.4f} ms, "
+            f"topk_smallest (after) {t['topk_smallest']:.4f} ms "
+            f"(+{t['topk_smallest'] - t['torch.topk']:.4f}; medians of 7 "
+            f"turns of 20 calls; {smi})")
+    return out
+
+
+def _check_tie_rule():
+    """topk_smallest / topk_largest on the card against a stable sort, on
+    integer rows full of ties."""
+    import torch
+    from neurondb_tpu_torch.ops import topk as TK
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for shape, k in (((BATCH, NLISTS), 16), ((64, 100_000), 100),
+                     ((8, 5000), 1000)):
+        s = torch.randint(0, 4, shape, generator=gen, device="cuda").float()
+        v, i = TK.topk_smallest(s, k)
+        sv, si = torch.sort(s, dim=-1, stable=True)
+        lv, li = TK.topk_largest(s, k)
+        nv, ni = torch.sort(-s, dim=-1, stable=True)
+        if not (torch.equal(i, si[:, :k]) and torch.equal(v, sv[:, :k])
+                and torch.equal(li, ni[:, :k])):
+            fail(f"top-k on the card breaks ties unlike a stable sort at "
+                 f"{shape}, k {k}")
+    log("[quantized] topk_smallest / topk_largest on the card equal a "
+        "stable sort on tied integer rows ([16384, 1024] k 16, [64, 100000] "
+        "k 100, [8, 5000] k 1000)")
+
+
+def _check_quantize_bits(x):
+    """``quantize`` on the card against the port's CPU ``quantize``, every
+    bit of codes, scales, offsets and dequantized rows, in all ten
+    formats on a 4,096-row sample."""
+    import torch
+    from neurondb_tpu_torch.types import quantized as TQ
+    sample = x[np.random.default_rng(2).choice(len(x), QF_SAMPLE,
+                                               replace=False)]
+    sample[0] = 0.0
+    for fmt in TQ.FORMATS:
+        c = TQ.quantize(sample, fmt, device="cpu")
+        g = TQ.quantize(sample, fmt, device="cuda")
+        for name, a, b in (("codes", c.codes, g.codes),
+                           ("scale", c.scale, g.scale),
+                           ("offset", c.offset, g.offset),
+                           ("dequantize", TQ.dequantize(c), TQ.dequantize(g))):
+            if b.device.type != "cuda" or not torch.equal(
+                    a.view(torch.uint8), b.cpu().view(torch.uint8)):
+                fail(f"quantize({fmt}) on the card differs from the CPU in "
+                     f"its {name}")
+    log(f"[quantized] quantize on the card = the CPU's, bit for bit, in all "
+        f"{len(TQ.FORMATS)} formats on {QF_SAMPLE} rows")
+
+
+def phase_quantized(x, qb, exact, smi):
+    """BASELINE.json config 3 on the main path's corpus: QuantizedFlatIndex
+    (int8 and f16, ip, originals kept, k 10, rerank 8) against exact ip;
+    binary with l2 beside it, without a bar; the tie rule and quantize on
+    the card; the coarse top-k before and after the tie repair."""
+    import torch
+    import neurondb_tpu_torch as nt
+    from neurondb_tpu_torch.ml.metrics import recall_at_k
+
+    _check_tie_rule()
+    _check_quantize_bits(x)
+    topk_times = _tie_topk_times(smi)
+    q = qb[:QF_NQ]
+    flat = nt.FlatIndex(x, metric="ip", device="cuda")
+    _, gt_ip = flat.search(q, k=K)
+    del flat
+    torch.cuda.empty_cache()
+    qn = np.linalg.norm(q.astype(np.float64), axis=1)
+    xn = np.linalg.norm(x.astype(np.float64), axis=1)
+    out = {"topk_ms": topk_times}
+    for fmt, metric, bar in (("int8", "ip", 0.95), ("f16", "ip", 0.99),
+                             ("binary", "l2", None)):
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        idx = nt.QuantizedFlatIndex(x, fmt=fmt, metric=metric,
+                                    device="cuda")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        held = torch.cuda.memory_allocated() - mem0
+        d, ids = idx.search(q, k=K, rerank=QF_RERANK)
+        truth = gt_ip if metric == "ip" else exact
+        r = recall_at_k(ids[:len(truth)], truth)
+        qps, reps = _qps(lambda: idx.search(q, k=K, rerank=QF_RERANK),
+                         QF_NQ, n_batches=1)
+        log(f"[quantized] {fmt} {metric}: built in {build_s:.3f} s; "
+            f"compression_bytes {idx.compression_bytes}, device bytes held "
+            f"{held} ({idx.device_bytes} by the index's count); recall@10 "
+            f"{r:.4f} vs exact {metric} at rerank {QF_RERANK}; QPS median "
+            f"{qps:.0f} of {[round(v) for v in reps]} (batch {QF_NQ}, one "
+            f"search a rep, after a warm one; {smi})")
+        if any(len(set(row)) != len(row) for row in ids):
+            fail(f"QuantizedFlatIndex({fmt}) returned an id twice in a row")
+        if metric == "ip":
+            want = -np.einsum("bd,bkd->bk", q.astype(np.float64),
+                              x[ids].astype(np.float64))
+            err = np.abs(d - want) / (qn[:, None] * xn[ids])
+            log(f"[quantized] {fmt}: max |d + q.x| / (|q||x|) {err.max():.3e}")
+            if err.max() > QF_DIST_TOL:
+                fail(f"QuantizedFlatIndex({fmt}) returned distances off "
+                     f"-q.x by {err.max():.3e} of |q||x|")
+        if bar is not None and r < bar:
+            fail(f"QuantizedFlatIndex({fmt}) recall@10 {r:.4f} < {bar}")
+        out[fmt] = dict(build_s=build_s, held=held, recall=r, qps=qps)
+        del idx
+        torch.cuda.empty_cache()
+    return out
+
+
+def _near_tie_ok(b, i_h, s_h, i_d, s_d):
+    """Host and device fusion may swap documents whose fused scores are
+    within HYBRID_TIE_TOL of the k-th: Python floats against f32 sums."""
+    k = i_h.shape[1]
+    only_h = [j for j in range(k) if i_h[b, j] not in set(i_d[b])]
+    only_d = [j for j in range(k) if i_d[b, j] not in set(i_h[b])]
+    ok = all(abs(s_h[b, j] - s_h[b, -1]) <= HYBRID_TIE_TOL for j in only_h) \
+        and all(abs(s_d[b, j] - s_d[b, -1]) <= HYBRID_TIE_TOL for j in only_d)
+    log(f"[hybrid] query {b}: host and device fusion differ by host "
+        f"{[(int(i_h[b, j]), float(s_h[b, j])) for j in only_h]} / device "
+        f"{[(int(i_d[b, j]), float(s_d[b, j])) for j in only_d]}, k-th "
+        f"scores {float(s_h[b, -1]):.8f} / {float(s_d[b, -1]):.8f}: "
+        f"{'a near-tie' if ok else 'NOT a near-tie'}")
+    return ok
+
+
+def _check_hybrid_scan(batch):
+    """The grouped kernel at the shape the hybrid ANN gives it (its
+    tuples, tiles, kp and selection mode, caught from one call of
+    ``batch``) against its plain version; after the counted run."""
+    from neurondb_tpu_torch.ops.kernels import ivf_scan_grouped as G
+    seen = {}
+    scan = G.grouped_probe_scan
+
+    def scanning(*a, **kw):
+        seen.setdefault("scan", (a, kw))
+        return scan(*a, **kw)
+
+    G.grouped_probe_scan = scanning
+    try:
+        batch()
+    finally:
+        G.grouped_probe_scan = scan
+    if "scan" not in seen:
+        fail("the hybrid search did not launch the grouped scan kernel")
+    (qpad, vecs, toff, tcnt), kw = seen.pop("scan")
+    err = _check_self_query_scan("hybrid", "ANN grouped scan", qpad, vecs,
+                                 toff, tcnt, kw)
+    log(f"[hybrid] ANN grouped scan ({HYBRID_NQ} queries x nprobe "
+        f"{HYBRID_NPROBE}, {HYBRID_NLISTS} lists, kp {kw['kp']}, qt "
+        f"{kw['qt']}, pb {kw['pos_bits']}, block_min {kw['block_min']}, "
+        f"{toff.shape[0]} tiles, store {vecs.dtype}): max |kernel - plain| "
+        f"{err:.3e}, the wrong-row control fails")
+
+
+def phase_hybrid(x, smi):
+    """BASELINE.json config 4 as bench.py:204-224 runs it: 200,000
+    documents, IVFFlat nlists 512, BM25 (hashed build), 512 queries,
+    hybrid_search_batch and HybridSearcher at k 10, nprobe 8; then a
+    Collection on the card through planned_search. Returns the grouped
+    kernel's launches of the searches."""
+    import torch
+    from neurondb_tpu_torch.client import Collection
+    from neurondb_tpu_torch.index.ivf import IVFFlatIndex
+    from neurondb_tpu_torch.ops.kernels import ivf_scan_grouped as G
+    from neurondb_tpu_torch.search import hybrid as H
+    from neurondb_tpu_torch.search.bm25 import BM25Index
+    from neurondb_tpu_torch.search.planner import QueryPlanner, planned_search
+
+    docs = [f"topic{i % 64} item {i} cluster word{i % 64}"
+            for i in range(HYBRID_DOCS)]
+    xd = x[:HYBRID_DOCS]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ivf = IVFFlatIndex(xd, nlists=HYBRID_NLISTS, metric="l2", seed=0,
+                       device="cuda")
+    torch.cuda.synchronize()
+    ivf_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bm = BM25Index(docs, device="cuda")
+    bm._ensure_device()
+    torch.cuda.synchronize()
+    bm_s = time.perf_counter() - t0
+    log(f"[hybrid] IVFFlatIndex({HYBRID_DOCS}, nlists {HYBRID_NLISTS}) built in "
+        f"{ivf_s:.3f} s; BM25Index({HYBRID_DOCS} docs, hashed: "
+        f"{bm._hash_vocab is not None}) in {bm_s:.3f} s: tokenizer "
+        f"{bm.build_seconds['tokenize']:.3f} s, postings "
+        f"{bm.build_seconds['postings']:.3f} s, the rest (weights, upload) "
+        f"{bm_s - sum(bm.build_seconds.values()):.3f} s; "
+        f"{len(bm.df)} terms, {len(bm._post_doc)} postings")
+    if bm._hash_vocab is None:
+        fail("BM25Index at 200,000 documents did not take the hashed build")
+    rng = np.random.default_rng(3)                     # bench.py:214-216
+    qis = rng.integers(0, HYBRID_DOCS, HYBRID_NQ)
+    texts = [f"topic{int(qi) % 64} item {int(qi)}" for qi in qis]
+    q = xd[qis]
+    searcher = H.HybridSearcher(ivf, bm, candidates=HYBRID_C)
+
+    def batch():
+        return H.hybrid_search_batch(ivf, bm, q, texts, k=K,
+                                     nprobe=HYBRID_NPROBE)
+
+    def served():
+        return searcher.search_batch(q, texts, k=K, nprobe=HYBRID_NPROBE)
+
+    _zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    s_d, i_d = batch()
+    s_p, i_p = served()
+    peak = torch.cuda.max_memory_allocated() - base
+    rates = {}
+    for name, fn in (("hybrid_search_batch", batch),
+                     ("HybridSearcher", served)):
+        rates[name] = _qps(fn, HYBRID_NQ, n_batches=1)
+    launches = G.LAUNCHES
+    n_searches = 2 + 2 * 4
+    hit = {name: float(np.mean([int(qi) in row for qi, row in zip(qis, ids)]))
+           for name, ids in (("hybrid_search_batch", i_d),
+                             ("HybridSearcher", i_p))}
+    for name, (qps, reps) in rates.items():
+        log(f"[hybrid] {name}: QPS median {qps:.0f} of "
+            f"{[round(v) for v in reps]} ({HYBRID_NQ} queries, k {K}, "
+            f"nprobe {HYBRID_NPROBE}, candidates {HYBRID_C}, one call a "
+            f"rep after a warm one); self-hit {hit[name]:.4f}; {smi}")
+    log(f"[hybrid] peak device memory of one call of each searcher "
+        f"{peak / 2**20:.1f} MiB above the indexes; grouped kernel launches "
+        f"{launches} for {n_searches} ANN searches")
+    if launches != n_searches:
+        fail(f"the hybrid ANN searches did not all go through the grouped "
+             f"kernel ({launches} launches, {n_searches} searches)")
+    _check_hybrid_scan(batch)
+    if min(hit.values()) < SELF_HIT_BAR:
+        fail(f"hybrid self-hit {hit} < {SELF_HIT_BAR}")
+    for b in range(HYBRID_NQ):
+        if set(i_p[b]) != set(i_d[b]):
+            fail(f"HybridSearcher and hybrid_search_batch differ on query "
+                 f"{b}: {i_p[b]} vs {i_d[b]}")
+    got = bm.scores_batch(texts[:64], device=True)
+    want = np.stack([bm.scores(t) for t in texts[:64]])
+    if not np.array_equal(got.view(np.int32), want.view(np.int32)):
+        fail("BM25 scores_batch on the card differs from the host oracle")
+    log("[hybrid] scores_batch on the card = the host oracle, bit for bit, "
+        "on 64 queries")
+    t0 = time.perf_counter()
+    s_h, i_h = H.hybrid_search_batch(ivf, bm, q, texts, k=K,
+                                     nprobe=HYBRID_NPROBE, device=False)
+    host_s = time.perf_counter() - t0
+    differ = [b for b in range(HYBRID_NQ) if set(i_h[b]) != set(i_d[b])]
+    bad = [b for b in differ if not _near_tie_ok(b, i_h, s_h, i_d, s_d)]
+    log(f"[hybrid] host fusion (device=False, {host_s:.2f} s) against the "
+        f"card's: {HYBRID_NQ - len(differ)} of {HYBRID_NQ} id sets equal, "
+        f"{len(differ) - len(bad)} near-ties, max |score diff| "
+        f"{np.abs(np.sort(s_h, 1) - np.sort(s_d, 1)).max():.3e}")
+    if bad:
+        fail(f"host and device fusion disagree past a near-tie on {bad}")
+
+    # one served batch profiled whole, then each stage alone
+    prof = {"all": _profile("hybrid HybridSearcher batch 512", served)}
+    vd, vids = ivf.search(q, k=HYBRID_C, nprobe=HYBRID_NPROBE, out="device")
+    ts = bm.scores_batch(texts, device=True, return_device=True)
+    stages = {
+        "ann": lambda: ivf.search(q, k=HYBRID_C, nprobe=HYBRID_NPROBE,
+                                  out="device"),
+        "bm25": lambda: bm.scores_batch(texts, device=True,
+                                        return_device=True),
+        "fusion": lambda: H._join_fuse(vd, vids, ts, *searcher._tables,
+                                       weight=searcher.weight, k=K,
+                                       candidates=HYBRID_C)}
+    for name, fn in stages.items():
+        prof[name] = _profile(f"hybrid stage {name}", fn)
+    log("[hybrid] device ms by stage (one call each, torch.profiler): " +
+        ", ".join(f"{n} {prof[n][0]:.3f}" for n in stages) +
+        f"; the whole served batch {prof['all'][0]:.3f}")
+    del ivf, bm, searcher, vd, vids, ts
+    torch.cuda.empty_cache()
+
+    col = Collection("hybrid", DIM, index="ivfflat", device="cuda")
+    col.add(x[:COLLECTION_ROWS], documents=docs[:COLLECTION_ROWS])
+    col._ensure_index()
+    host_calls = []
+    oracle = col._bm25.scores
+    col._bm25.scores = lambda text: host_calls.append(text) or oracle(text)
+    planner = QueryPlanner()
+    routes = {}
+    for kw in ({"vector": x[7]}, {"text": "topic7 item 7"},
+               {"vector": x[7], "text": "topic7 item 7"}):
+        res = planned_search(col, planner, k=K, **kw)
+        routes[res["plan"].mode] = [r["id"] for r in res["results"]]
+    if host_calls:
+        fail(f"the card Collection scored {host_calls} with the host oracle")
+    log(f"[hybrid] Collection(ivfflat, {COLLECTION_ROWS} rows) through "
+        f"planned_search: {routes}; planner stats {planner.stats()}")
+    if set(routes) != {"ann", "fts", "hybrid"} or routes["ann"][0] != 7 \
+            or 7 not in routes["fts"] or 7 not in routes["hybrid"]:
+        fail(f"planned_search routed or answered wrongly: {routes}")
+    return launches
 
 
 def _flash_inputs(gen, B, H, S, dh, ragged, device):
@@ -2282,6 +2649,10 @@ def main(argv):
         hnsw_launches, hnsw_mode = phase_hnsw(x, qb, gt, exact, smi)
         flat_launches[hnsw_mode] += hnsw_launches
         pq_launches = phase_ivfpq(x)
+        phase_quantized(x, qb, exact, smi)
+        # the hybrid ANN takes the default selection (packed at 200k rows)
+        from neurondb_tpu_torch import get_config
+        flat_launches[get_config().ivf_select] += phase_hybrid(x, smi)
         del x
         flash_launches = phase_rerank()
     kernels = []

@@ -1,8 +1,12 @@
 """Top-k selection and the chunked exact k-NN scan.
 
-Counterpart of ``neurondb_tpu/ops/topk.py``. Deliberate divergence:
+Counterpart of ``neurondb_tpu/ops/topk.py``. Both selections break ties
+as ``lax.top_k`` does: among equal values the lowest index comes first
+(``torch.topk`` promises no order among ties). Deliberate divergences:
 ``recall_target < 1.0`` selected with ``lax.approx_min_k`` on the TPU;
-the card has no such primitive, so it is served exactly here.
+the card has no such primitive, so it is served exactly here. -0.0 and
+0.0 are one value here (index order between them); ``lax.top_k`` orders
+-0.0 first.
 """
 
 from __future__ import annotations
@@ -16,13 +20,58 @@ from neurondb_tpu_torch.ops import distance as D
 NEG_FILL = float(torch.finfo(torch.float32).max)
 
 
+ROW_SORT_MAX = 4096   # rows this wide or narrower: one stable sort
+
+
 def topk_smallest(scores: torch.Tensor, k: int, *,
                   recall_target: float = 1.0
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Smallest-k along the last axis -> (values, indices), ascending.
-    ``recall_target`` is accepted for parity and served exactly."""
-    k = min(k, scores.shape[-1])
-    return torch.topk(scores, k, dim=-1, largest=False, sorted=True)
+    """Smallest-k along the last axis -> (values, indices), ascending,
+    the lowest index first among equal values, as ``lax.top_k(-scores)``
+    gives them (-0.0 counts as equal to 0.0 here, where ``lax.top_k``
+    puts it first). Rows of up to ``ROW_SORT_MAX`` take one stable sort;
+    wider rows ``_smallest_positions``. ``recall_target`` is accepted for
+    parity and served exactly."""
+    if scores.shape[-1] <= ROW_SORT_MAX:
+        v, pos = torch.sort(scores, dim=-1, stable=True)
+        return v[..., :k], pos[..., :k]
+    pos = _smallest_positions(scores.float() + 0.0, k)   # -0.0 -> 0.0
+    return torch.gather(scores, -1, pos), pos
+
+
+def topk_largest(scores: torch.Tensor, k: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Largest-k along the last axis -> (values, indices), descending,
+    the lowest index first among equal values: ``lax.top_k(scores)``."""
+    if scores.shape[-1] <= ROW_SORT_MAX:
+        v, pos = torch.sort(scores, dim=-1, descending=True, stable=True)
+        return v[..., :k], pos[..., :k]
+    pos = _smallest_positions(0.0 - scores.float(), k)   # never -0.0
+    return torch.gather(scores, -1, pos), pos
+
+
+def _smallest_positions(s: torch.Tensor, k: int) -> torch.Tensor:
+    """Positions of the k smallest of f32 ``s`` (no -0.0: ``==`` and
+    ``<`` must see one zero) in (value, index) order: one ``torch.topk``
+    for the k-th value, a second over the indices of the values equal to
+    it (the lowest of them fill the slots the smaller values leave), and
+    a stable sort of the k picks by value."""
+    n = s.shape[-1]
+    k = min(k, n)
+    v, pos = torch.topk(s, k, dim=-1, largest=False, sorted=True)
+    kth = v[..., -1:]
+    n_less = (v < kth).sum(-1, keepdim=True)
+    idx = torch.arange(n, dtype=torch.int32, device=s.device)
+    ties = torch.topk(torch.where(s == kth, idx, n), k, dim=-1,
+                      largest=False, sorted=True).values.long()
+    # the picks below the k-th value, by index, then stably by value
+    pos = torch.gather(pos, -1, torch.argsort(pos, dim=-1))
+    pos = torch.gather(pos, -1, torch.sort(torch.gather(s, -1, pos),
+                                           dim=-1, stable=True).indices)
+    slot = torch.arange(k, device=s.device)
+    return torch.where(slot >= n_less,
+                       torch.gather(ties, -1, (slot - n_less).clamp(min=0)),
+                       pos)
 
 
 def merge_topk(vals_a: torch.Tensor, idx_a: torch.Tensor,
@@ -62,7 +111,7 @@ def chunked_knn(queries: torch.Tensor, base: torch.Tensor, k: int, *,
         e = min(s + chunk, N)
         sq = base_sqnorms[s:e] if base_sqnorms is not None else None
         d = D.pairwise_distance(queries, base[s:e], metric,
-                                base_sqnorms=sq, dot_dtype=dot_dtype)
+                                base_sqnorms=sq, dot_dtype=dot_dtype).float()
         if valid is not None:
             d = d.masked_fill(~valid[s:e][None, :], NEG_FILL)
         cv, cpos = topk_smallest(d, k, recall_target=recall_target)

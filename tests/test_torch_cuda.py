@@ -638,3 +638,191 @@ def test_hnsw_bulk_build_on_card_runs_grouped_kernel(dev, monkeypatch):
     assert idx._vecs.dtype == torch.bfloat16
     _, ids = idx.search(x[:500], k=1, ef=64)
     assert float((ids[:, 0] == np.arange(500)).mean()) >= 0.99
+
+
+# ---- the quantized-flat and BM25 / hybrid slice on the card ----
+
+@pytest.mark.parametrize("shape,k", [((64, 5000), 10), ((16384, 1024), 16),
+                                     ((8, 3000), 700)])
+def test_topk_ties_on_card_follow_a_stable_sort(dev, shape, k):
+    from neurondb_tpu_torch.ops.topk import topk_largest, topk_smallest
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    s = torch.randint(0, 4, shape, generator=gen).float().to(dev)
+    v, i = topk_smallest(s, k)
+    sv, si = torch.sort(s, dim=-1, stable=True)
+    assert torch.equal(i, si[:, :k]) and torch.equal(v, sv[:, :k])
+    v, i = topk_largest(s, k)
+    sv, si = torch.sort(-s, dim=-1, stable=True)
+    assert torch.equal(i, si[:, :k]) and torch.equal(v, -sv[:, :k])
+
+
+@pytest.mark.parametrize("n", [300, 5000])      # the sort and two-pass ways
+def test_signed_zeros_on_card_match_cpu(dev, n):
+    """-0.0 and 0.0 are one value on the card as on the CPU (index
+    order among them), in both selections."""
+    from neurondb_tpu_torch.ops.topk import topk_largest, topk_smallest
+    s = torch.zeros(2, n)
+    s[:, ::3] = -0.0
+    s[1, 1::4] = -1.0
+    for fn in (topk_smallest, topk_largest):
+        cv, ci = fn(s, 40)
+        gv, gi = fn(s.to(dev), 40)
+        assert torch.equal(gi.cpu(), ci), fn.__name__
+        assert torch.equal(gv.cpu().view(torch.int32), cv.view(torch.int32))
+
+
+@pytest.mark.parametrize("metric", ["l2", "sqeuclidean", "ip", "cosine",
+                                    "l1", "chebyshev", "minkowski",
+                                    "hamming", "jaccard", "dice"])
+def test_metrics_on_card_match_cpu(dev, metric):
+    from neurondb_tpu_torch.ops import distance as TD
+    rng = np.random.default_rng(4)
+    q = np.round(rng.standard_normal((37, 65)) * 2).astype(np.float32)
+    x = np.round(rng.standard_normal((900, 65)) * 2).astype(np.float32)
+    cpu = TD.pairwise_distance(torch.from_numpy(q), torch.from_numpy(x), metric)
+    gpu = TD.pairwise_distance(torch.from_numpy(q).to(dev),
+                               torch.from_numpy(x).to(dev), metric).cpu()
+    assert gpu.dtype == cpu.dtype
+    if metric in ("hamming", "jaccard", "dice", "l1", "chebyshev"):
+        assert torch.equal(gpu, cpu)       # integer data: exact sums
+    else:
+        np.testing.assert_allclose(gpu.numpy(), cpu.numpy(), rtol=RTOL,
+                                   atol=ATOL)
+    qc = rng.integers(0, 256, (37, 48)).astype(np.uint8)   # 384 bits
+    xc = rng.integers(0, 256, (900, 48)).astype(np.uint8)
+    assert torch.equal(
+        TD.pairwise_distance(torch.from_numpy(qc).to(dev),
+                             torch.from_numpy(xc).to(dev), "hamming").cpu(),
+        TD.pairwise_distance(torch.from_numpy(qc), torch.from_numpy(xc),
+                             "hamming"))
+
+
+def test_quantize_bits_on_card_match_cpu(dev):
+    from neurondb_tpu_torch.types import quantized as TQ
+    rng = np.random.default_rng(5)
+    x = (rng.standard_normal((4096, 131)) * 3).astype(np.float32)
+    x[0] = 0.0
+    x[1] = 2.5
+    for fmt in TQ.FORMATS:
+        c = TQ.quantize(x, fmt, device="cpu")
+        g = TQ.quantize(x, fmt, device=dev)
+        for a, b in ((c.codes, g.codes), (c.scale, g.scale),
+                     (c.offset, g.offset),
+                     (TQ.dequantize(c), TQ.dequantize(g))):
+            assert b.device.type == dev.type and a.dtype == b.dtype, fmt
+            assert torch.equal(a.view(torch.uint8), b.cpu().view(torch.uint8)), fmt
+
+
+@pytest.mark.parametrize("build", ["python", "hashed"])
+def test_bm25_scores_batch_on_card_equal_the_oracle(dev, build):
+    from neurondb_tpu_torch.search.bm25 import BM25Index
+    rng = np.random.default_rng(6)
+    vocab = [f"w{i}" for i in range(300)]
+    docs = [" ".join(rng.choice(vocab, rng.integers(3, 30)))
+            for _ in range(6000)]
+    bm = BM25Index(docs, use_native=build == "hashed", device=dev)
+    queries = [" ".join(rng.choice(vocab, 4)) for _ in range(40)]
+    queries += ["w1 w1 w2", "", " ".join(vocab[:100])]
+    got = bm.scores_batch(queries, device=True, return_device=True)
+    assert got.device.type == dev.type
+    want = np.stack([bm.scores(q) for q in queries[:-1]])
+    assert np.array_equal(got[:-1].cpu().numpy().view(np.int32),
+                          want.view(np.int32))
+    inv = {bm._term_index(w): w for w in vocab}
+    capped = " ".join(inv[t] for t in bm.capped_terms(queries[-1]))
+    assert np.array_equal(got[-1].cpu().numpy().view(np.int32),
+                          bm.scores(capped).view(np.int32))
+
+
+def test_text_search_on_a_card_index_scores_on_the_card(dev, monkeypatch):
+    """With no ``device`` argument, BM25 search, both hybrid searches
+    and a card Collection's fts and hybrid routes score on the card:
+    the host oracle is never called. The card's search equals the host
+    search's scores bit for bit."""
+    from neurondb_tpu_torch.client import Collection
+    from neurondb_tpu_torch.index.flat import FlatIndex
+    from neurondb_tpu_torch.search.bm25 import BM25Index
+    from neurondb_tpu_torch.search.hybrid import (hybrid_search,
+                                                  hybrid_search_batch)
+    from neurondb_tpu_torch.search.planner import (QueryPlanner,
+                                                   planned_search)
+    rng = np.random.default_rng(8)
+    n = 3000
+    x = rng.standard_normal((n, 32)).astype(np.float32)
+    docs = [f"topic{i % 64} item {i} cluster word{i % 64}" for i in range(n)]
+    bm = BM25Index(docs, device=dev)
+    flat = FlatIndex(x, device=dev)
+    col = Collection("t", 32, index="flat", device=dev)
+    col.add(x, documents=docs)
+    col._ensure_index()
+    host = {}
+    for name, obj in (("bm", bm), ("col", col._bm25)):
+        host[name] = obj.scores
+        monkeypatch.setattr(obj, "scores", lambda q: pytest.fail(
+            "the host oracle scored a query of a card index"))
+    got = bm.scores_batch(["topic3 item 3"], return_device=True)
+    assert got.device.type == dev.type
+    ds, di = bm.search("topic3 item 3", k=20)
+    _, ids = hybrid_search(flat, bm, x[3], "topic3 item 3", k=10)
+    assert ids[0] == 3
+    _, ids = hybrid_search_batch(flat, bm, x[3:4], ["topic3 item 3"], k=10)
+    assert ids[0, 0] == 3
+    planner = QueryPlanner()
+    for kw in ({"text": "topic3 item 3"},
+               {"vector": x[3], "text": "topic3 item 3"}):
+        res = planned_search(col, planner, k=10, **kw)
+        assert 3 in [r["id"] for r in res["results"]], res["plan"].mode
+    monkeypatch.setattr(bm, "scores", host["bm"])
+    hs, _ = bm.search("topic3 item 3", k=20, device=False)
+    assert np.array_equal(ds.view(np.int32), hs.view(np.int32))
+    assert np.array_equal(ds.view(np.int32),
+                          bm.scores("topic3 item 3")[di].view(np.int32))
+
+
+def test_hybrid_device_fusion_on_card_matches_host(dev):
+    from neurondb_tpu_torch.index.flat import FlatIndex
+    from neurondb_tpu_torch.index.ivf import IVFFlatIndex
+    from neurondb_tpu_torch.search.bm25 import BM25Index
+    from neurondb_tpu_torch.search.hybrid import (HybridSearcher,
+                                                  hybrid_search_batch)
+    rng = np.random.default_rng(7)
+    n = 20000
+    x = rng.standard_normal((n, 32)).astype(np.float32)
+    ext = np.arange(n, dtype=np.int64) * 3 + 1
+    docs = [f"topic{i % 64} item {i} cluster word{i % 64}" for i in range(n)]
+    bm = BM25Index(docs, ids=ext, device=dev)
+    qis = rng.integers(0, n, 96)
+    q = x[qis]
+    texts = [f"topic{qi % 64} item {qi}" for qi in qis]
+    flat = FlatIndex(x, ids=ext, device=dev)
+    s_h, i_h = hybrid_search_batch(flat, bm, q, texts, k=10, device=False)
+    s_d, i_d = hybrid_search_batch(flat, bm, q, texts, k=10, device=True)
+    for b in range(len(q)):
+        diff = set(i_d[b]) ^ set(i_h[b])
+        # host sums in Python floats, the card in f32: near-ties may swap
+        assert not diff or abs(s_h[b, -1] - s_d[b, -1]) <= 1e-6, b
+    assert float(np.mean([ext[qi] in row for qi, row in zip(qis, i_d)])) >= 0.99
+    ivf = IVFFlatIndex(x, nlists=64, ids=ext, device=dev)
+    s_p, i_p = HybridSearcher(ivf, bm).search_batch(q, texts, k=10, batch=40,
+                                                    nprobe=8)
+    s_b, i_b = hybrid_search_batch(ivf, bm, q, texts, k=10, nprobe=8)
+    for b in range(len(q)):
+        assert set(i_p[b]) == set(i_b[b]), b
+
+
+@pytest.mark.parametrize("fmt,metric", [("int8", "ip"), ("f16", "ip"),
+                                        ("binary", "l2"), ("int4", "cosine")])
+def test_quantized_flat_on_card_matches_cpu(dev, fmt, metric):
+    from neurondb_tpu_torch.index.flat import QuantizedFlatIndex
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((20000, 64)).astype(np.float32)
+    q = x[:300] + 0.1 * rng.standard_normal((300, 64)).astype(np.float32)
+    cpu = QuantizedFlatIndex(x, fmt=fmt, metric=metric, device="cpu")
+    gpu = QuantizedFlatIndex(x, fmt=fmt, metric=metric, device=dev)
+    assert gpu.q.codes.device.type == dev.type
+    assert gpu.compression_bytes == cpu.compression_bytes
+    for rerank in (0, 8):
+        cd, ci = cpu.search(q, k=10, rerank=rerank)
+        gd, gi = gpu.search(q, k=10, rerank=rerank)
+        assert float((gi == ci).mean()) >= 0.999, rerank
+        np.testing.assert_allclose(gd, cd, rtol=1e-4, atol=1e-4)

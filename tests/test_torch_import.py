@@ -370,3 +370,32 @@ def test_hnsw_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "20000 []"
+
+
+def test_search_slice_imports_without_jax():
+    """The quantized-flat and BM25/hybrid slice loads where jax and the
+    JAX package (its native library included) cannot be imported, and
+    loads neither; the package exports the JAX ``__init__``'s names."""
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'neurondb_tpu'):\n"
+        "            raise ImportError(name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import neurondb_tpu_torch as nt\n"
+        "from neurondb_tpu_torch.types import quantized, sparse\n"
+        "from neurondb_tpu_torch.search import (bm25, hybrid, planner,\n"
+        "                                       sparse_search)\n"
+        "from neurondb_tpu_torch import client\n"
+        "names = ['QuantizedFlatIndex', 'topk_smallest', 'merge_topk',\n"
+        "         'l1_distance', 'hamming_distance', 'chebyshev_distance',\n"
+        "         'minkowski_distance', 'jaccard_distance', 'pairwise_distance']\n"
+        "assert all(n in nt.__all__ and hasattr(nt, n) for n in names)\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'neurondb_tpu') or 'ndbnative' in m))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
