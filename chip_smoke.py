@@ -147,6 +147,39 @@ After 8 (IVF-PQ) and before 11, on 5's corpus, two phases:
   ``planned_search`` (ann, fts and hybrid routes; the ann route returns
   the query's own id first).
 
+Then, before 11, the sharded phase (``BASELINE.json`` config 5, the
+``neurondb_tpu_torch.parallel`` indexes on ``make_mesh(4, device="cuda")``:
+four logical shards of one card, or one shard a card where four are
+visible):
+
+- config 5 cut to one card: ``bench.make_corpus(10_000_000, 96, seed=5,
+  corpus="clustered")``, 4,096 queries (corpus rows plus noise, their own
+  seed); exact neighbours from ``FlatIndex``, which ``ShardedFlatIndex``
+  must return apart from distance ties; ``ShardedIVFIndex(nlists=4096)``:
+  build seconds by stage and peak device memory, then at nprobe 8, 16,
+  32, 64 recall@10, QPS (median of 3 one-search reps after a warm one)
+  and the probe kernel's launches per search (one a shard); fails unless
+  some nprobe reaches 0.95 or on an id twice in a row; one search
+  profiled (the probe kernel's share, the busy share); the probe kernel
+  against ``probe_scan_plain`` at shard 0's CSR (caught from one more
+  search; held to a share of |q|^2 + |x|^2, ``SH_TERMS_TOL``);
+  ``sharded_kmeans_step`` against one Lloyd step of ``ml/kmeans`` on 4M
+  rows and the index's centroids (fails past 1e-4);
+  ``MultiHostIVFIndex.from_chunks`` over a factory of ten 1M-row chunks
+  on a 2 x 2 mesh: build seconds, recall@10 at the same nprobes (fails
+  under 0.95 at nprobe 64);
+- on 5's corpus: ``ShardedHNSWIndex(x, m=16)`` (build seconds, the
+  grouped kernel's launches in the shards' bootstraps, which must be
+  more than 0, recall@10 at ef 16, 32, 64, 128, which must reach 0.95);
+  ``ShardedIVFPQIndex(nlists=1024, n_sub=32)`` with int8 originals at
+  (nprobe, rerank) (8, 8) and (16, 16) (rerank_k = rerank x k): recall@10
+  (must reach 0.95), QPS and fused launches per search (one a shard);
+  the grouped kernel against its plain version at shard 0's first
+  bootstrap batch, the fused PQ kernel against its plain version at shard
+  0's tiles (bit for bit);
+- the phase's launches join the kernels line's rows (probe exact, PQ
+  exact, grouped in the bootstrap's mode), and its wall seconds print.
+
 Any failed check ends the run with a non-zero exit. The line before the
 last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -252,6 +285,21 @@ HYBRID_NPROBE, HYBRID_C = 8, 100
 # this of the k-th fused score may swap between the two
 HYBRID_TIE_TOL = 1e-6
 COLLECTION_ROWS = 20_000
+# BASELINE.json config 5 (DEEP-100M, 96-d) cut to one card: 10M rows of
+# bench.py's clustered corpus at DEEP's width over 4 logical shards
+SH_ROWS, SH_DIM, SH_SEED, SH_NQ = 10_000_000, 96, 5, 4096
+SH_SHARDS, SH_NLISTS = 4, 4096
+SH_NPROBES = (8, 16, 32, 64)
+SH_CHUNK = 1_000_000        # the 2-D index's streaming chunks
+SH_KMEANS_ROWS = 4 << 20    # whole 16,384-row assignment chunks per shard
+SH_KMEANS_TOL = 1e-4        # sharded k-means step vs one Lloyd step
+SH_FLAT_TIE_RTOL = 1e-5     # ShardedFlatIndex vs FlatIndex: ties may swap
+# the probe kernel vs plain at shard 0's CSR, a share of |q|^2 + |x|^2:
+# 4x the first reading, 1.0e-6 (9.8e-4 at terms ~1,000; NVIDIA H100 80GB
+# HBM3, 700 W)
+SH_TERMS_TOL = 4e-6
+SH_EFS = (16, 32, 64, 128)
+SH_PQ_SWEEP = ((8, 8), (16, 16))   # (nprobe, rerank): rerank_k = rerank * k
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -353,8 +401,9 @@ def _tiles(q, probes, offsets, counts, qt):
 
 
 def _compare(kd, ki, pd, pi, label, rtol=RTOL, atol=ATOL):
-    """Distances allclose; rows equal wherever the plain distance is more
-    than the tolerance away from both neighbours (pd/pi carry one extra
+    """Distances allclose (``atol`` a number or one per plain entry); rows
+    equal wherever the plain distance is more than the tolerance away
+    from both neighbours (pd/pi carry one extra
     column, so the last kept entry has a right neighbour too)."""
     import torch
     kp = kd.shape[-1]
@@ -362,10 +411,13 @@ def _compare(kd, ki, pd, pi, label, rtol=RTOL, atol=ATOL):
     if not torch.equal(kd < 1e30, live):
         fail(f"{label}: kernel and plain disagree on which slots are filled")
     kd_l, pd_l = kd[live], pd[..., :kp][live]
-    if not torch.allclose(kd_l, pd_l, rtol=rtol, atol=atol):
+    # atol: a number, or one per plain entry (pd's shape)
+    at = torch.as_tensor(atol, dtype=pd.dtype, device=pd.device).expand_as(pd)
+    if not ((kd_l - pd_l).abs() <= at[..., :kp][live]
+            + rtol * pd_l.abs()).all():
         bad = (kd_l - pd_l).abs().max().item()
         fail(f"{label}: distances differ by up to {bad}")
-    tol = atol + rtol * pd.abs()
+    tol = at + rtol * pd.abs()
     gap = pd[..., 1:] - pd[..., :-1]                 # [..., kp]
     left = torch.ones_like(live)
     left[..., 1:] = gap[..., :kp - 1] > tol[..., 1:kp]
@@ -1967,6 +2019,317 @@ def phase_hybrid(x, smi):
     return launches
 
 
+def _dup_in_row(ids) -> bool:
+    s = np.sort(ids, axis=1)
+    return bool(((s[:, 1:] == s[:, :-1]) & (s[:, 1:] >= 0)).any())
+
+
+def _catch(module, name):
+    """Wrap ``module.name`` to keep the arguments of its first call;
+    returns (calls dict, restore)."""
+    seen = {}
+    fn = getattr(module, name)
+
+    def catching(*a, **kw):
+        seen.setdefault("args", (a, kw))
+        return fn(*a, **kw)
+
+    setattr(module, name, catching)
+    return seen, lambda: setattr(module, name, fn)
+
+
+def phase_sharded(x, qb, exact, smi):
+    """BASELINE.json config 5 cut to one card (10M x 96 over 4 logical
+    shards: exact neighbours, the sharded flat index, the 1-D IVF on the
+    probe kernel, the sharded k-means step, the 2-D IVF's streaming
+    build), then the sharded HNSW and IVF-PQ on the main path's corpus;
+    each kernel of the path against its plain version at a shard's own
+    shapes, outside the counted windows. Returns the phase's launches:
+    probe, fused PQ (exact) and grouped (with its mode)."""
+    import torch
+    import neurondb_tpu_torch as nt
+    from neurondb_tpu_torch import parallel as par
+    from neurondb_tpu_torch.ml import kmeans as KM
+    from neurondb_tpu_torch.ml.metrics import recall_at_k
+    from neurondb_tpu_torch.ops.kernels import ivf_scan as PS
+    from neurondb_tpu_torch.ops.kernels import ivf_scan_grouped as G
+    from neurondb_tpu_torch.ops.kernels import ivfpq_scan as PQS
+    from neurondb_tpu_torch.parallel import mesh as PM
+    t_phase = time.perf_counter()
+    sys.path.insert(0, ROOT)
+    from bench import make_corpus          # numpy and the stdlib only
+    t0 = time.perf_counter()
+    x5 = make_corpus(SH_ROWS, SH_DIM, seed=SH_SEED, corpus="clustered")
+    rng = np.random.default_rng(SH_SEED + 1)
+    q5 = (x5[rng.choice(SH_ROWS, SH_NQ, replace=False)] + 0.05 *
+          rng.standard_normal((SH_NQ, SH_DIM)).astype(np.float32))
+    mesh = par.make_mesh(SH_SHARDS, device="cuda")
+    log(f"[sharded] config 5 cut to one card: corpus {x5.shape} (seed "
+        f"{SH_SEED}, clustered) + {SH_NQ} queries generated in "
+        f"{time.perf_counter() - t0:.2f} s; {mesh} on {smi}")
+
+    # exact neighbours: the single-card FlatIndex; then the sharded one
+    t0 = time.perf_counter()
+    flat = nt.FlatIndex(x5, metric="l2", device="cuda")
+    fd, gt5 = flat.search(q5, k=K)
+    flat_s = time.perf_counter() - t0
+    del flat
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sflat = par.ShardedFlatIndex(x5, mesh=mesh)
+    sd, si = sflat.search(q5, k=K)
+    sflat_s = time.perf_counter() - t0
+    del sflat
+    torch.cuda.empty_cache()
+    swap = si != gt5
+    tie = np.abs(sd - fd) <= SH_FLAT_TIE_RTOL * np.abs(fd)
+    log(f"[sharded] FlatIndex (exact, {flat_s:.2f} s with upload) vs "
+        f"ShardedFlatIndex ({sflat_s:.2f} s): {int(swap.sum())} of "
+        f"{swap.size} ids differ, all at distance ties within "
+        f"{SH_FLAT_TIE_RTOL:.0e} relative: {bool(tie[swap].all())} on "
+        f"{smi}")
+    if not tie[swap].all():
+        fail("ShardedFlatIndex disagrees with FlatIndex past a distance tie")
+
+    # the 1-D sharded IVF on the probe kernel
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    _zero_launches()
+    t0 = time.perf_counter()
+    ivf = par.ShardedIVFIndex(x5, nlists=SH_NLISTS, mesh=mesh, seed=0)
+    build_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    stages = ", ".join(f"{k} {v:.2f} s" for k, v in ivf.build_seconds.items())
+    log(f"[sharded] ShardedIVFIndex(nlists={SH_NLISTS}, {SH_SHARDS} shards) "
+        f"built in {build_s:.2f} s ({stages}); shard rows "
+        f"{[int(sh.vecs.shape[0]) for sh in ivf._shards]}, f32 store "
+        f"{sum(sh.vecs.numel() * 4 for sh in ivf._shards) / 1e9:.2f} GB, "
+        f"longest list slice {ivf.max_list}; peak device memory "
+        f"{peak / 1e9:.2f} GB above {base_mem / 1e9:.2f} GB on {smi}")
+    chosen = None
+    for nprobe in SH_NPROBES:
+        before = PS.LAUNCHES
+        _, ids = ivf.search(q5, k=K, nprobe=nprobe)
+        per_search = PS.LAUNCHES - before
+        r = recall_at_k(ids, gt5)
+        if _dup_in_row(ids):
+            fail(f"sharded IVF nprobe {nprobe}: an id twice in a row")
+        qps, reps = _qps(lambda: ivf.search(q5, k=K, nprobe=nprobe), SH_NQ,
+                         reps=3, n_batches=1)
+        log(f"[sharded] 1-D IVF nprobe {nprobe:>2}: recall@10 {r:.4f}, QPS "
+            f"median {qps:.0f} of {[round(v) for v in reps]} (batch "
+            f"{SH_NQ}, one search a rep, after a warm rep), probe-kernel "
+            f"launches per search {per_search} on {smi}")
+        if per_search != SH_SHARDS:
+            fail(f"a sharded IVF search made {per_search} probe launches, "
+                 f"not one per shard")
+        if chosen is None and r >= RECALL_BAR:
+            chosen = nprobe
+    if chosen is None:
+        fail(f"sharded IVF recall@10 below {RECALL_BAR} at every nprobe")
+    busy_ms, events = _profile(f"sharded profile nprobe {chosen} batch "
+                               f"{SH_NQ}", lambda: ivf.search(q5, k=K,
+                                                              nprobe=chosen))
+    probe_ms = sum(e.self_device_time_total for e in events
+                   if "probe_scan_kernel" in e.key) / 1e3
+    log(f"[sharded] profile: probe kernel {probe_ms:.3f} ms of "
+        f"{busy_ms:.3f} ms busy ({probe_ms / SH_SHARDS:.3f} ms a shard), "
+        f"the rest (coarse GEMM and top-nprobe, work tables, merges) "
+        f"{busy_ms - probe_ms:.3f} ms on {smi}")
+    n_probe = PS.LAUNCHES
+
+    # the probe kernel against its plain version on shard 0's CSR
+    seen, restore = _catch(PS, "probe_scan")
+    try:
+        ivf.search(q5, k=K, nprobe=chosen)
+    finally:
+        restore()
+    (q, vecs, poff, pcnt), kw = seen["args"]
+    kd, ki = PS.probe_scan(q, vecs, poff, pcnt, **kw)
+    pd, pi = PS.probe_scan_plain(q, vecs, poff, pcnt,
+                                 **dict(kw, kp=kw["kp"] + 1))
+    torch.cuda.synchronize()
+    # queries 0.05 sigma off corpus rows: d^2 ~ 0.24 beside terms
+    # |q|^2 + |x|^2 ~ 1,000, so the f32 expansion's rounding is held to a
+    # share of the terms, as HNSW's d^2 is (HNSW_TERMS_TOL)
+    terms = (q * q).sum(1)[None, :, None] + torch.where(
+        pi >= 0, (vecs * vecs).sum(1)[pi.clamp(min=0).long()], 0.0)
+    live = pd[..., :kw["kp"]] < 1e30
+    reading = float(((kd - pd[..., :kw["kp"]]).abs()
+                     / terms[..., :kw["kp"]])[live].max())
+    err = _compare(kd, ki, pd, pi, "sharded shard-0 probe scan", rtol=RTOL,
+                   atol=SH_TERMS_TOL * terms)
+    same = torch.equal(kd, pd[..., :kw["kp"]]) and \
+        torch.equal(ki, pi[..., :kw["kp"]])
+    ms = _cuda_ms(lambda: PS.probe_scan(q, vecs, poff, pcnt, **kw), 10)
+    plain_ms = _cuda_ms(lambda: PS.probe_scan_plain(q, vecs, poff, pcnt,
+                                                    **kw), 1)
+    log(f"[sharded] probe kernel vs plain at shard 0's CSR ({q.shape[0]} "
+        f"queries x nprobe {chosen}, {vecs.shape[0]} f32 rows, kp "
+        f"{kw['kp']}, max_segs {kw['max_segs']}): max |kernel - plain| "
+        f"{err:.3e}, at most {reading:.3e} of |q|^2 + |x|^2 (limit "
+        f"{SH_TERMS_TOL:.0e} of it + rtol {RTOL:.0e}), rows equal away "
+        f"from near-ties, bit-identical {same}; kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms on {smi}")
+    del q, vecs, poff, pcnt, kd, ki, pd, pi, terms, seen
+
+    # sharded k-means step vs one Lloyd step of ml/kmeans
+    rows = torch.from_numpy(x5[:SH_KMEANS_ROWS]).cuda()
+    cents = torch.from_numpy(ivf.centroids).cuda()
+    newc, inertia = par.sharded_kmeans_step(mesh, PM.shard_rows(mesh, rows),
+                                            cents)
+    labels, best = KM._assign_chunked(rows[None], cents[None],
+                                      (rows * rows).sum(-1)[None])
+    ref = KM._update(rows[None], labels, SH_NLISTS, cents[None])[0]
+    dc = float((newc - ref).abs().max())
+    di = abs(float(inertia) / float(best.sum()) - 1.0)
+    log(f"[sharded] sharded_kmeans_step vs one Lloyd step of ml/kmeans "
+        f"({SH_KMEANS_ROWS} rows, {SH_NLISTS} centroids): max centroid "
+        f"difference {dc:.3e}, relative inertia difference {di:.3e} "
+        f"(limit {SH_KMEANS_TOL:.0e}) on {smi}")
+    if dc > SH_KMEANS_TOL or di > SH_KMEANS_TOL:
+        fail("the sharded k-means step differs from the Lloyd step")
+    del ivf, rows, cents, newc, labels, best, ref
+    torch.cuda.empty_cache()
+
+    # the 2-D index: streaming build from a factory of 1M-row chunks
+    mesh2 = par.make_mesh_2d(2, SH_SHARDS // 2, device="cuda")
+
+    def chunks():
+        return (x5[s:s + SH_CHUNK] for s in range(0, SH_ROWS, SH_CHUNK))
+
+    _zero_launches()
+    t0 = time.perf_counter()
+    mh = par.MultiHostIVFIndex.from_chunks(chunks, nlists=SH_NLISTS,
+                                           mesh=mesh2, seed=0)
+    build_s = time.perf_counter() - t0
+    stages = ", ".join(f"{k} {v:.2f} s" for k, v in mh.build_seconds.items())
+    log(f"[sharded] MultiHostIVFIndex.from_chunks(factory of "
+        f"{SH_ROWS // SH_CHUNK} x {SH_CHUNK} rows) on {mesh2} built in "
+        f"{build_s:.2f} s ({stages}) on {smi}")
+    r = 0.0
+    for nprobe in SH_NPROBES:
+        t0 = time.perf_counter()
+        _, ids = mh.search(q5, k=K, nprobe=nprobe)
+        r = recall_at_k(ids, gt5)
+        if _dup_in_row(ids):
+            fail(f"2-D IVF nprobe {nprobe}: an id twice in a row")
+        log(f"[sharded] 2-D IVF nprobe {nprobe:>2}: recall@10 {r:.4f}, "
+            f"batch {SH_NQ} in {(time.perf_counter() - t0) * 1e3:.1f} ms "
+            f"on {smi}")
+    n_probe += PS.LAUNCHES
+    if r < RECALL_BAR:
+        fail(f"2-D IVF recall@10 {r} < {RECALL_BAR} at nprobe "
+             f"{SH_NPROBES[-1]}")
+    del mh, x5, q5, gt5, fd, sd, si
+    torch.cuda.empty_cache()
+
+    # sharded HNSW on the main path's corpus
+    seen, restore = _catch(G, "grouped_probe_scan")
+    _zero_launches()
+    try:
+        t0 = time.perf_counter()
+        hn = par.ShardedHNSWIndex(x, m=HNSW_M, mesh=mesh, seed=0)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+    finally:
+        restore()
+    n_grouped = G.LAUNCHES
+    phases = ", ".join(f"{k} {v:.2f} s" for k, v in hn.build_seconds.items())
+    log(f"[sharded] ShardedHNSWIndex({x.shape[0]} x {x.shape[1]}, m="
+        f"{HNSW_M}, {SH_SHARDS} shards) built in {build_s:.2f} s (summed "
+        f"over shards: {phases}); grouped-kernel launches {n_grouped} on "
+        f"{smi}")
+    if n_grouped == 0 or "args" not in seen:
+        fail("the sharded HNSW build did not launch the grouped kernel")
+    q = qb[:NQ]
+    hn_ok = False
+    for ef in SH_EFS:
+        t0 = time.perf_counter()
+        _, ids = hn.search(q, k=K, ef=ef)
+        r = recall_at_k(ids, exact)
+        if _dup_in_row(ids):
+            fail(f"sharded HNSW ef {ef}: an id twice in a row")
+        hn_ok |= r >= RECALL_BAR
+        log(f"[sharded] HNSW ef {ef:>3}: recall@10 {r:.4f} vs exact f32, "
+            f"{NQ} queries in {(time.perf_counter() - t0) * 1e3:.1f} ms on "
+            f"{smi}")
+    if not hn_ok:
+        fail(f"sharded HNSW recall@10 below {RECALL_BAR} at every ef")
+    del hn
+    torch.cuda.empty_cache()
+    (qpad, vecs, toff, tcnt), kw = seen["args"]
+    err = _check_self_query_scan("sharded", "shard-0 bootstrap grouped scan",
+                                 qpad, vecs, toff, tcnt, kw)
+    log(f"[sharded] grouped kernel vs plain at shard 0's first bootstrap "
+        f"batch ({toff.shape[0]} tiles x qt {kw['qt']}, kp {kw['kp']}, pb "
+        f"{kw['pos_bits']}, store {vecs.dtype}): max |kernel - plain| "
+        f"{err:.3e} (limit atol {SELF_QUERY_ATOL:.0e} at self-hits, rtol "
+        f"elsewhere), the wrong-row control fails; on {smi}")
+    mode = ("exact" if not kw["pos_bits"] else
+            "blockmin" if kw["block_min"] else "packed")
+    del qpad, vecs, toff, tcnt, seen
+
+    # sharded IVF-PQ (int8 originals) on the main path's corpus
+    _zero_launches()
+    t0 = time.perf_counter()
+    pq = par.ShardedIVFPQIndex(x, nlists=NLISTS, n_sub=32, mesh=mesh, seed=0)
+    build_s = time.perf_counter() - t0
+    stages = ", ".join(f"{k} {v:.2f} s" for k, v in pq.build_seconds.items())
+    log(f"[sharded] ShardedIVFPQIndex(nlists={NLISTS}, n_sub=32, int8 "
+        f"originals, {SH_SHARDS} shards) built in {build_s:.2f} s "
+        f"({stages}) on {smi}; {pq.stats()}")
+    qpq = qb[:SH_NQ]
+    pq_ok = False
+    for nprobe, rr in SH_PQ_SWEEP:
+        before = PQS.LAUNCHES
+        _, ids = pq.search(qpq, k=K, nprobe=nprobe, rerank_k=rr * K)
+        per_search = PQS.LAUNCHES - before
+        r = recall_at_k(ids[:NQ], exact)
+        if _dup_in_row(ids):
+            fail(f"sharded IVF-PQ nprobe {nprobe}: an id twice in a row")
+        qps, reps = _qps(lambda: pq.search(qpq, k=K, nprobe=nprobe,
+                                           rerank_k=rr * K), SH_NQ, reps=3,
+                         n_batches=1)
+        pq_ok |= r >= RECALL_BAR
+        log(f"[sharded] IVF-PQ nprobe {nprobe}, rerank {rr} (rerank_k "
+            f"{rr * K} a shard): recall@10 {r:.4f} vs exact f32, QPS median "
+            f"{qps:.0f} of {[round(v) for v in reps]} (batch {SH_NQ}), fused "
+            f"launches per search {per_search} on {smi}")
+        if per_search != SH_SHARDS:
+            fail(f"a sharded IVF-PQ search made {per_search} fused launches")
+    if not pq_ok:
+        fail(f"sharded IVF-PQ recall@10 below {RECALL_BAR}")
+    n_pq = PQS.LAUNCHES
+    seen, restore = _catch(PQS, "grouped_pq_scan_fused")
+    try:
+        pq.search(qpq, k=K, nprobe=SH_PQ_SWEEP[-1][0],
+                  rerank_k=SH_PQ_SWEEP[-1][1] * K)
+    finally:
+        restore()
+    a, kw = seen["args"]
+    kd, ki = PQS.grouped_pq_scan_fused(*a, **kw)
+    pd, pi = PQS.grouped_pq_scan_fused_plain(*a, **dict(kw, kp=kw["kp"] + 1))
+    torch.cuda.synchronize()
+    err = _compare(kd, ki, pd, pi, "sharded shard-0 fused PQ scan",
+                   rtol=PQ_TOL, atol=PQ_TOL)
+    same = torch.equal(kd, pd[..., :kw["kp"]]) and \
+        torch.equal(ki, pi[..., :kw["kp"]])
+    log(f"[sharded] fused PQ kernel vs plain at shard 0's tiles "
+        f"({a[7].shape[0]} tiles x qt {kw['qt']}, kp {kw['kp']}, pb "
+        f"{kw['pos_bits']}): max |kernel - plain| {err:.3e}, bit-identical "
+        f"{same} on {smi}")
+    if not same:
+        fail("sharded fused PQ scan: kernel and plain differ")
+    del pq, a, kd, ki, pd, pi, seen
+    torch.cuda.empty_cache()
+    log(f"[sharded] phase wall {time.perf_counter() - t_phase:.1f} s on "
+        f"{smi}; launches: probe {n_probe}, fused PQ {n_pq}, grouped "
+        f"{n_grouped} ({mode})")
+    return n_probe, n_pq, n_grouped, mode
+
+
 def _flash_inputs(gen, B, H, S, dh, ragged, device):
     """q, k, v [B, H, S, Dh] as strided views of [B, S, H, Dh] (the dense
     layers' layout, as the encoders pass them) and a ragged int32 mask
@@ -2653,6 +3016,10 @@ def main(argv):
         # the hybrid ANN takes the default selection (packed at 200k rows)
         from neurondb_tpu_torch import get_config
         flat_launches[get_config().ivf_select] += phase_hybrid(x, smi)
+        n_probe, n_pq, n_grouped, sh_mode = phase_sharded(x, qb, exact, smi)
+        probe_launches["exact"] += n_probe
+        pq_launches["exact"] += n_pq
+        flat_launches[sh_mode] += n_grouped
         del x
         flash_launches = phase_rerank()
     kernels = []

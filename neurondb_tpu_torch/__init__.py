@@ -19,7 +19,11 @@ rerank and text-embedding path:
   ``PQIndex``, ``IVFPQIndex`` and ``HNSWIndex``;
 - ``search``: BM25, hybrid fusion, sparse retrieval, the query planner
   and the rerankers;
-- ``client``: ``Collection`` and ``Client``.
+- ``client``: ``Collection`` and ``Client``;
+- ``parallel`` (imported on its own, not by this module): a mesh of
+  torch devices, the sharded flat, IVF, HNSW and IVF-PQ indexes, the
+  two-level (DCN x ICI) IVF with its streaming build, and sharded
+  k-means.
 
 Every index and model constructor takes a ``device`` (default from
 ``config.device``, ``"cuda"``): entry points run on the card unless the

@@ -826,3 +826,58 @@ def test_quantized_flat_on_card_matches_cpu(dev, fmt, metric):
         gd, gi = gpu.search(q, k=10, rerank=rerank)
         assert float((gi == ci).mean()) >= 0.999, rerank
         np.testing.assert_allclose(gd, cd, rtol=1e-4, atol=1e-4)
+
+
+# ---- the sharded indexes on the card ----
+
+def _shard_clustered(seed, n, d):
+    rng = np.random.default_rng(seed)
+    c = rng.standard_normal((32, d)).astype(np.float32) * 2.0
+    x = (c[rng.integers(0, 32, n)]
+         + rng.standard_normal((n, d))).astype(np.float32)
+    q = (x[:256] + 0.05 * rng.standard_normal((256, d))).astype(np.float32)
+    return x, q
+
+
+def test_sharded_ivf_on_card_runs_the_probe_kernel(dev):
+    """Four logical shards on one card: every search launches the probe
+    kernel once a shard, and the same state on a CPU mesh (the plain
+    version) returns the same ids."""
+    from neurondb_tpu_torch.parallel import ShardedIVFIndex, make_mesh
+    x, q = _shard_clustered(12, 40000, 64)
+    idx = ShardedIVFIndex(x, nlists=128, mesh=make_mesh(4, device="cuda"))
+    assert all(sh.vecs.is_cuda and sh.vecs.dtype == torch.float32
+               for sh in idx._shards)
+    before = PS.LAUNCHES
+    d, ids = idx.search(q, k=10, nprobe=8)
+    assert PS.LAUNCHES == before + 4
+    idx.search(q, k=10, nprobe=16)
+    assert PS.LAUNCHES == before + 8
+    assert (ids[:, 0] == np.arange(256)).mean() >= 0.99
+    S, cap = 4, max(sh.vecs.shape[0] for sh in idx._shards)
+    vecs = np.zeros((S, cap, 64), np.float32)
+    rows = np.full((S, cap), -1, np.int32)
+    for s, sh in enumerate(idx._shards):
+        vecs[s, :sh.vecs.shape[0]] = sh.vecs.cpu().numpy()
+        rows[s, :sh.rows.shape[0]] = sh.rows.cpu().numpy()
+    cpu = ShardedIVFIndex.from_arrays(
+        make_mesh(4, device="cpu"), centroids=idx.centroids, vecs=vecs,
+        rows=rows, off=np.stack([sh.off.cpu().numpy() for sh in idx._shards]),
+        cnt=np.stack([sh.cnt.cpu().numpy() for sh in idx._shards]),
+        ids=idx._ids_np)
+    cd, ci = cpu.search(q, k=10, nprobe=8)
+    assert float((ci == ids).mean()) >= 0.999
+    np.testing.assert_allclose(d, cd, rtol=1e-4, atol=2e-3)
+
+
+def test_sharded_ivfpq_on_card_runs_the_fused_kernel(dev):
+    from neurondb_tpu_torch.parallel import ShardedIVFPQIndex, make_mesh
+    x, q = _shard_clustered(13, 40000, 64)
+    idx = ShardedIVFPQIndex(x, nlists=64, n_sub=16, mesh=make_mesh(
+        4, device="cuda"), seed=0)
+    assert all(sh.codes_t.is_cuda and sh.orig.dtype == torch.int8
+               for sh in idx._shards)
+    before = PQS.LAUNCHES
+    _, ids = idx.search(q, k=10, nprobe=8)
+    assert PQS.LAUNCHES == before + 4
+    assert (ids[:, 0] == np.arange(256)).mean() >= 0.99

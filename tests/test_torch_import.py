@@ -399,3 +399,31 @@ def test_search_slice_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_parallel_slice_imports_without_jax():
+    """The sharding modules load where jax and the JAX package cannot be
+    imported, and load neither; the subpackage exports the JAX
+    ``neurondb_tpu.parallel``'s names."""
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'neurondb_tpu'):\n"
+        "            raise ImportError(name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import neurondb_tpu_torch.parallel as par\n"
+        "from neurondb_tpu_torch.parallel import (mesh, multihost, sharded,\n"
+        "                                         sharded_hnsw, sharded_ivfpq)\n"
+        "names = ['make_mesh', 'local_mesh', 'sharded_knn',\n"
+        "         'sharded_kmeans_step', 'ShardedFlatIndex', 'ShardedIVFIndex',\n"
+        "         'ShardedHNSWIndex', 'ShardedIVFPQIndex', 'MultiHostFlatIndex',\n"
+        "         'MultiHostIVFIndex', 'kmeans_fit_2d', 'knn_2d', 'make_mesh_2d']\n"
+        "assert all(hasattr(par, n) for n in names)\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'neurondb_tpu')))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
