@@ -99,7 +99,42 @@ each print their own lines:
    against ``use_flash=False``; one call profiled, with the flash
    kernel's share of its device time; ``PretrainedEmbedder``
    self-retrieval through a cosine ``FlatIndex``; the default
-   ``CrossEncoder()`` and ``TextEmbedder()`` through the kernel.
+   ``CrossEncoder()`` and ``TextEmbedder()`` through the kernel;
+12. generation, ViT and RAG (``phase_generate``, with transformers, PIL
+   and regex blocked from import): GPT-2 small at the published ``gpt2``
+   widths (vocab 50,257, hidden 768, 12 layers, 12 heads, 1,024
+   positions), random N(0, 0.02) weights, the byte tokenizer: (a) f32
+   greedy decode of 8 left-padded prompts of 5-64 tokens, 32 new, each
+   token the argmax of ``gpt_logits`` over prompt + generated prefix (a
+   top-2 gap under ``GPT_TIE_TOL`` excepted); (b) the W8A8 int32
+   accumulate (``torch._int_mm`` on padded operands) bit for bit with f64
+   sums at every decode and prefill GEMM shape of the int8 model
+   (``GPT_MM_ROWS``), the lm head at B 1, 16, 64, 128; (c) the int8 cache
+   within the JAX test's dequant bound, int8 KV and int8_dot
+   teacher-forced against the bf16 cache's logits (max and mean |diff|,
+   ``GPT_KV_TOL`` / ``GPT_KV_MEAN``; argmax agreement, ``GPT_KV_AGREE``;
+   free-running greedy tokens equal up to a near-tie), int8_dot's code
+   products exact at P 1,056; (d) sampling at top_k 50 / top_p 0.9: every
+   draw in the kept set, seeded, eos latched; no host wait inside the
+   decode loop (sync debug mode: 32 tokens wait as often as 2, greedy,
+   sampled and int8_dot); (e) decode tokens/s, ms a step, prefill ms and peak
+   memory for B 1, 16, 64, 128 x f32 / bf16 / int8 weights x bf16 / int8
+   KV (prompt 64, 64 new), the int8-KV crossover beside the JAX
+   package's 64, one B 128 decode profiled. ViT-base (224 px, patch 16)
+   on 64 raw RGB images: the flash kernel at (64, 12, 197, 64), no mask,
+   against its plain version, ``embed_images`` with 12 flash launches
+   counted, images/s, against ``use_flash=False`` (``VIT_FLASH_TOL``),
+   ``EmbeddingService.embed_image``, the kernel's share of a profile.
+   RAG through ``Client().rag()`` on an all-MiniLM-L6-v2-geometry export
+   (``NEURONDB_TORCH_WEIGHTS``): 10,000 documents, ~39k chunks, the
+   stages' seconds and the embed's flash launches (layers x sub-batches),
+   the kernel on the first sub-batch's own inputs (1,024, 12, 128, 32,
+   ragged key mask) against its plain version, that sub-batch's vectors
+   against ``use_flash=False`` (``RAG_EMB_TOL``),
+   256 queries at weight 0 (self-hit >= 0.99) and 0.5, queries/s, the
+   dense top-5 of 32 against float64, then 64 context + question prompts
+   through ``Client().llm.complete_batch`` -> ``LocalProvider`` ->
+   ``GPT2LM`` (bf16, 32 new tokens): seconds and tokens/s.
 
 Between 10 and 11, the probe kernel against plain: ``probe_scan``'s CUDA
 kernel (work table + kernel) against ``probe_scan_plain``; ptxas
@@ -216,7 +251,9 @@ KERNELS = ("ivf_scan_grouped", "ivf_scan_grouped_f32", "ivfpq_scan",
 FLASH_TOL = {True: 2e-3, False: 1e-4}
 REF_TOL = {True: 5e-2, False: 2e-3}     # vs attention_reference (JAX tests)
 FLASH_SHAPES = ((64, 12, 512, 64, True), (1, 8, 8192, 128, False),
-                (1, 2, 8192, 64, False))  # (B, H, S, Dh, ragged mask)
+                (1, 2, 8192, 64, False),  # (B, H, S, Dh, ragged mask)
+                (64, 12, 197, 64, False),  # ViT-base, 64 images
+                (1024, 12, 128, 32, True))  # the RAG embed's sub-batch
 # the grid's sequence lengths, the 128-row query tile's edges among them
 FLASH_S = (1, 100, 127, 128, 129, 257, 300, 512, 513, 640, 1900)
 FLASH_TURNS, FLASH_REPS = 7, 10    # alternating turns of kernel and SDPA
@@ -300,6 +337,48 @@ SH_FLAT_TIE_RTOL = 1e-5     # ShardedFlatIndex vs FlatIndex: ties may swap
 SH_TERMS_TOL = 4e-6
 SH_EFS = (16, 32, 64, 128)
 SH_PQ_SWEEP = ((8, 8), (16, 16))   # (nprobe, rerank): rerank_k = rerank * k
+# generation, ViT and RAG (phase_generate): the published gpt2 config
+GPT2_SMALL = dict(vocab=50257, hidden=768, layers=12, heads=12, max_len=1024)
+GPT_B, GPT_PROMPT, GPT_NEW = 8, 64, 32     # (a): left-padded prompts 5-64
+# a token may differ from the no-cache argmax only where the two logits
+# lie this close (f32 sums in another order)
+GPT_TIE_TOL = 1e-4
+GPT_TP_BATCHES = (1, 16, 64, 128)          # throughput: prompt 64, 64 new
+GPT_TP_PROMPT = GPT_TP_NEW = 64
+# the W8A8 rows that the int8 model meets (only (e) runs it): decode B,
+# prefill B x prompt; the lm head at decode B (prefill takes the last row)
+GPT_MM_ROWS = tuple(sorted(set(GPT_TP_BATCHES)
+                           | {B * GPT_TP_PROMPT for B in GPT_TP_BATCHES}))
+GPT_TOP_K, GPT_TOP_P = 50, 0.9
+# int8 KV and int8_dot against the bf16 cache, teacher-forced logits (std
+# 0.553 at these weights): max and mean |diff| at ~2x the readings (max
+# 0.0138 / 0.2034, mean 0.00153 / 0.01396) and the share of steps whose
+# argmax agrees (readings 0.992 / 0.957). Planted faults, by
+# scripts/gpt_kv_faults.py: int8_dot without its value or key scales
+# moves the max past 3 and the agreement under 0.06; int8 codes
+# truncated, not rounded, the int8 KV mean to 0.0037 (NVIDIA H100 80GB
+# HBM3, 700 W)
+GPT_KV_TOL = {"int8 KV": 0.03, "int8 KV + int8_dot": 0.4}
+GPT_KV_MEAN = {"int8 KV": 0.003, "int8 KV + int8_dot": 0.028}
+GPT_KV_AGREE = {"int8 KV": 0.9, "int8 KV + int8_dot": 0.9}
+# google/vit-base-patch16-224's geometry
+VIT_BASE = dict(hidden=768, layers=12, heads=12, ff=3072, patch=16,
+                image_size=224)
+VIT_IMAGES = 64
+# vit_encode with the flash kernel vs use_flash=False, final-LN CLS (|cls|
+# up to ~4): the JAX flash tests' bf16 tolerance, 8.3x the reading 6.0e-3
+# (NVIDIA H100 80GB HBM3, 700 W)
+VIT_FLASH_TOL = 5e-2
+# all-MiniLM-L6-v2's geometry (vocab 30,522, 512 positions, max_len 128)
+MINILM = dict(vocab=30522, hidden=384, layers=6, heads=12, ff=1536,
+              max_len=512)
+RAG_DOCS, RAG_SENTS = 10_000, 27            # ~1,500 characters a document
+RAG_QUERIES, RAG_DENSE, RAG_GEN, RAG_GEN_NEW = 256, 32, 64, 32
+RAG_SELF_HIT_BAR = 0.99
+RAG_TIE_TOL = 1e-5        # cosine: f32 card products vs f64 on the host
+# the embed's unit vectors, flash vs use_flash=False: 6.4x the reading
+# 7.8e-5 (NVIDIA H100 80GB HBM3, 700 W)
+RAG_EMB_TOL = 5e-4
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -2024,14 +2103,20 @@ def _dup_in_row(ids) -> bool:
     return bool(((s[:, 1:] == s[:, :-1]) & (s[:, 1:] >= 0)).any())
 
 
-def _catch(module, name):
-    """Wrap ``module.name`` to keep the arguments of its first call;
+def _catch(module, name, clone=False):
+    """Wrap ``module.name`` to keep the arguments of its first call
+    (``clone``: copies of its tensors, which later calls may overwrite);
     returns (calls dict, restore)."""
     seen = {}
     fn = getattr(module, name)
 
+    def copy(x):
+        return x.clone() if clone and hasattr(x, "clone") else x
+
     def catching(*a, **kw):
-        seen.setdefault("args", (a, kw))
+        if "args" not in seen:
+            seen["args"] = (tuple(copy(x) for x in a),
+                            {key: copy(x) for key, x in kw.items()})
         return fn(*a, **kw)
 
     setattr(module, name, catching)
@@ -2775,12 +2860,12 @@ def _rerank_vocab():
             + [f"##s{i}" for i in range(200)])
 
 
-def _write_bert_export(path, seed=0):
+def _write_bert_export(path, seed=0, c=BERT_BASE):
     """weights.npz under the HF names (Linear weights [out, in]), random
     N(0, 0.02) weights from a numpy seed, zero biases, unit LayerNorm
-    gains, a one-logit classifier; vocab.txt; config.json."""
+    gains, a one-logit classifier; vocab.txt; config.json. ``c``: the
+    geometry (BERT-base, or all-MiniLM-L6-v2's for the RAG phase)."""
     rng = np.random.default_rng(seed)
-    c = BERT_BASE
     h, ff = c["hidden"], c["ff"]
 
     def rnd(*shape):
@@ -2987,6 +3072,620 @@ def phase_rerank():
     return launches
 
 
+class _BlockImports:
+    """A finder that refuses the named top-level modules: the generation
+    phase runs as on a machine without them (the card machine has no
+    transformers, PIL or regex)."""
+
+    def __init__(self, names):
+        self.names = set(names)
+
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in self.names:
+            raise ImportError(f"{name} is blocked in phase_generate")
+        return None
+
+
+def _gpt_prompts(rng, lens, S, vocab):
+    ids = np.zeros((len(lens), S), np.int64)
+    for b, n in enumerate(lens):
+        ids[b, S - n:] = rng.integers(0, vocab, n)
+    return ids
+
+
+def _teacher_forced(params, ids, lens, toks, heads, cache_len, **kw):
+    """Logits [steps, B, V]: prefill, then one decode step a given token
+    (``toks`` [B, steps]); ``kw``: kv_int8 / int8_dot."""
+    import torch
+    from neurondb_tpu_torch.ml import gpt as TG
+    dev = params["wte"].device
+    idt = torch.as_tensor(ids, device=dev)
+    lt = torch.as_tensor(lens, device=dev).long()
+    with torch.no_grad():
+        logits, cache = TG._prefill(params, idt, lt, heads, cache_len,
+                                    kv_int8=any(kw.values()))
+        out = [logits.float()]
+        step = torch.zeros((), dtype=torch.long, device=dev)
+        for i in range(toks.shape[1] - 1):
+            logits, cache = TG._decode_step(params, cache, toks[:, i], step,
+                                            ids.shape[1], lt, heads,
+                                            int8_dot=kw.get("int8_dot", False))
+            out.append(logits.float())
+            step += 1
+    return torch.stack(out)
+
+
+def _kv_compare(params, ids, lens, toks, ref, heads, cache_len, **kw):
+    """An int8 cache (``kw``: kv_int8 / int8_dot) against the reference
+    cache's teacher-forced logits ``ref`` [steps, B, V] along its greedy
+    tokens ``toks`` [B, steps]: max and mean |logit diff|, the share of
+    steps whose argmax agrees, the largest reference top-2 gap where it
+    does not; free-running greedy decode: tokens equal, and the largest
+    reference top-2 gap at a row's first differing token (until then the
+    two runs decode the same prefix, so the reference gap is that step's)."""
+    import torch
+    from neurondb_tpu_torch.ml import gpt as TG
+    got = _teacher_forced(params, ids, lens, toks, heads, cache_len, **kw)
+    d = (got - ref).abs()
+    top2 = ref.topk(2, dim=-1).values
+    gap = (top2[..., 0] - top2[..., 1]).T                      # [B, steps]
+    agree = (got.argmax(-1) == ref.argmax(-1)).T
+    free, _ = TG.generate_ids(params, ids, lens, 0, heads=heads,
+                              max_new=toks.shape[1], cache_len=cache_len, **kw)
+    same = free == toks
+    firsts = [(b, int((~same[b]).nonzero()[0]))
+              for b in range(same.shape[0]) if not bool(same[b].all())]
+    return dict(diff=float(d.max()), mean=float(d.mean()),
+                agree=float(agree.float().mean()),
+                flip_gap=float(gap[~agree].max()) if bool((~agree).any())
+                else 0.0,
+                free_equal=int(same.sum()), n=same.numel(),
+                free_gap=max((float(gap[b, i]) for b, i in firsts),
+                             default=0.0))
+
+
+def _host_waits(fn):
+    """How often ``fn`` makes the host wait for the card, counted by the
+    sync debug mode's warnings."""
+    import warnings
+    import torch
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchronizing" in str(w.message) for w in caught)
+
+
+def _phase_gpt(smi, tok):
+    """GPT-2 small at full width: (a) f32 greedy decode against the
+    no-cache argmax, (b) W8A8 bit for bit, (c) the int8 cache and
+    int8_dot, (d) sampling, (e) throughput. Returns (f32 params, the bf16
+    GPT2LM)."""
+    import torch
+    from neurondb_tpu_torch.ml import gpt as TG
+    c = GPT2_SMALL
+    H, V = c["heads"], c["vocab"]
+    t0 = time.perf_counter()
+    p32 = TG.init_gpt_params(0, vocab_size=V, hidden=c["hidden"],
+                             layers=c["layers"], heads=H, max_len=c["max_len"],
+                             device="cuda")
+    lm_bf = TG.GPT2LM(p32, tok, heads=H, dtype="bfloat16", device="cuda")
+    lm_i8 = TG.GPT2LM(p32, tok, heads=H, dtype="int8", device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in TG.ParamTree(p32).parameters())
+    log(f"[generate] GPT-2 small {c} (the published gpt2 config, "
+        f"{n_params / 1e6:.1f} M params), random N(0, 0.02) weights from "
+        f"seed 0, byte tokenizer; f32, bf16 and int8 (W8A8) copies on the "
+        f"card in {time.perf_counter() - t0:.2f} s; {smi}")
+
+    # (a) f32 greedy decode vs the no-cache forward's argmax
+    rng = np.random.default_rng(11)
+    lens = rng.integers(5, GPT_PROMPT + 1, GPT_B)
+    lens[:2] = (5, GPT_PROMPT)
+    ids = _gpt_prompts(rng, lens, GPT_PROMPT, V)
+    cache_len = GPT_PROMPT + GPT_NEW
+    toks, n_valid = TG.generate_ids(p32, ids, lens, 0, heads=H,
+                                    max_new=GPT_NEW, cache_len=cache_len)
+    full = np.concatenate([ids, toks[:, :-1].cpu().numpy()], axis=1)
+    lg = TG.gpt_logits(p32, full, heads=H, lens=lens + GPT_NEW - 1)
+    lg = lg[:, GPT_PROMPT - 1:]                       # predicts token i
+    pred = lg.argmax(-1)
+    miss = (pred != toks).nonzero().tolist()
+    gaps = [float(lg[b, i, pred[b, i]] - lg[b, i, toks[b, i]])
+            for b, i in miss]
+    log(f"[generate] (a) f32 greedy decode, KV cache, {GPT_B} left-padded "
+        f"prompts of {sorted(lens.tolist())} tokens, {GPT_NEW} new: "
+        f"{toks.numel() - len(miss)}/{toks.numel()} tokens equal the argmax of "
+        f"gpt_logits over prompt + generated prefix; differing at near-ties "
+        f"{[round(g, 7) for g in gaps]} (tolerance {GPT_TIE_TOL}); n_valid "
+        f"{n_valid.tolist()}; {smi}")
+    if any(g > GPT_TIE_TOL for g in gaps) or not bool(torch.isfinite(lg).all()):
+        fail(f"f32 KV-cache decode differs from the full forward: gaps {gaps}")
+    del lg, full
+
+    # (b) W8A8: the int32 accumulate bit for bit with the f64 sums
+    q8 = lm_i8.params
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cases, biggest = 0, 0
+    shapes = [(n, q8["blocks"][0][n][0], GPT_MM_ROWS)
+              for n in ("w_qkv", "w_o", "w_fc", "w_pr")]
+    shapes.append(("lm_head", q8["lm_head"][0], GPT_TP_BATCHES))
+    for name, wq, rows in shapes:
+        for M in rows:
+            x = torch.randn((M, wq.shape[0]), generator=gen, device="cuda")
+            acc, sx = TG.w8a8_accumulate(x, wq)
+            xq, _ = TG._quant_rows(x)
+            want = TG.int8_matmul_plain(xq, wq)
+            if not torch.equal(acc, want):
+                fail(f"W8A8 {name} at {M} rows: _int_mm and the f64 sums "
+                     f"differ by {int((acc - want).abs().max())}")
+            biggest = max(biggest, int(want.abs().max()))
+            cases += 1
+    x8 = TG._quant_rows(torch.randn((128, c["hidden"]), generator=gen,
+                                    device="cuda"))[0]
+    t_int = _cuda_ms(lambda: TG.int8_matmul(x8, q8["lm_head"][0]), 5)
+    log(f"[generate] (b) W8A8: {cases} GEMMs (w_qkv, w_o, w_fc, w_pr at "
+        f"{GPT_MM_ROWS} rows, lm head [768, 50257] at {GPT_TP_BATCHES}: "
+        f"every decode and prefill shape of the int8 model in (e)) bit for "
+        f"bit with int8_matmul_plain (f64); largest |sum| {biggest} (2^24 = "
+        f"{2 ** 24}: an f32 GEMM on the codes would round); lm head at 128 "
+        f"rows {t_int:.3f} ms with its padding; {smi}")
+
+    # (c) the int8 cache: the JAX test's bound on the f32 model's cache,
+    # then int8 KV and int8_dot against the bf16 cache, teacher-forced
+    idt, lt = torch.as_tensor(ids, device="cuda"), torch.as_tensor(
+        lens, device="cuda")
+    with torch.no_grad():
+        _, exact = TG._prefill(p32, idt, lt, H, cache_len)
+        _, quant = TG._prefill(p32, idt, lt, H, cache_len, kv_int8=True)
+    worst = float("inf")
+    for e, qe in zip(exact["k"] + exact["v"], quant["k"] + quant["v"]):
+        dq = TG._dequant_kv(qe).float()
+        step = e.abs().amax(-1, keepdim=True) / 127.0
+        slack = 0.5 * step + e.abs() * 2 ** -7 + 1e-6 - (dq - e).abs()
+        worst = min(worst, float(slack.min()))
+    if worst < 0:
+        fail(f"int8 KV cache dequantizes past the bound by {-worst}")
+    del exact, quant
+    pb = lm_bf.params
+    tb, _ = TG.generate_ids(pb, ids, lens, 0, heads=H, max_new=GPT_NEW,
+                            cache_len=cache_len)
+    ref = _teacher_forced(pb, ids, lens, tb, H, cache_len)
+    for label, kw in (("int8 KV", dict(kv_int8=True)),
+                      ("int8 KV + int8_dot", dict(int8_dot=True))):
+        tol, floor = GPT_KV_TOL[label], GPT_KV_AGREE[label]
+        st = _kv_compare(pb, ids, lens, tb, ref, H, cache_len, **kw)
+        log(f"[generate] (c) {label} vs the bf16 cache (bf16 weights), "
+            f"teacher-forced over {tb.numel()} steps: max |logit diff| "
+            f"{st['diff']:.4f} (tolerance {tol}; mean {st['mean']:.5f}, "
+            f"tolerance {GPT_KV_MEAN[label]}; logits' std "
+            f"{float(ref.std()):.3f}), argmax equal at "
+            f"{st['agree']:.4f} of steps (floor {floor}), largest top-2 gap "
+            f"where not {st['flip_gap']:.4f}; free-running greedy tokens "
+            f"equal {st['free_equal']}/{st['n']}, each row's first "
+            f"difference at a top-2 gap up to {st['free_gap']:.4f} (bound "
+            f"{2 * tol}); {smi}")
+        if st["diff"] > tol or st["mean"] > GPT_KV_MEAN[label] \
+                or st["agree"] < floor or st["free_gap"] > 2 * tol:
+            fail(f"{label} off the bf16 cache: {st}")
+    # int8_dot's code products: exact integers (f32 chunks under 2^24)
+    # at GPT-2's longest cache, extreme codes, against f64
+    g = torch.Generator(device="cuda").manual_seed(6)
+    P = c["max_len"] + RAG_GEN_NEW
+    kc = torch.randint(-127, 128, (GPT_B, H, P, 64), generator=g,
+                       device="cuda").to(torch.int8)
+    qq = torch.randint(-127, 128, (GPT_B, H, 64), generator=g,
+                       device="cuda").to(torch.int8)
+    aq = torch.full((GPT_B, H, P), 127, dtype=torch.int8, device="cuda")
+    kc[:, :, :, 0] = -127
+    exact_s = torch.equal(TG._int8_scores(qq, kc).double(), torch.einsum(
+        "bhd,bhkd->bhk", qq.double(), kc.double()))
+    mixed = TG._int8_mix(aq, kc).double()
+    exact_o = torch.equal(mixed, torch.einsum("bhk,bhkd->bhd", aq.double(),
+                                              kc.double()))
+    log(f"[generate] (c) int8_dot code products at P {P} bit for bit with "
+        f"f64: scores {exact_s}, mix {exact_o} (largest |sum| "
+        f"{int(mixed.abs().max())} > 2^24 = {2 ** 24}); {smi}")
+    if not (exact_s and exact_o):
+        fail("int8_dot's code products are not the exact integer sums")
+    del kc
+    log(f"[generate] (c) int8 cache vs the f32 model's f32 cache: within half "
+        f"a step + |e| 2^-7 + 1e-6 everywhere (least slack {worst:.3e}); "
+        f"{smi}")
+    del ref
+
+    # (d) sampling: draws in the kept set, seeded, eos latched
+    seen = []
+    sample = TG._sample
+
+    def recording(logits, g, temperature, top_k, top_p, do_sample):
+        t = sample(logits, g, temperature, top_k, top_p, do_sample)
+        seen.append((logits.clone(), t.clone()))
+        return t
+
+    kw = dict(heads=H, max_new=GPT_NEW, cache_len=cache_len, temperature=1.0,
+              top_k=GPT_TOP_K, top_p=GPT_TOP_P)
+    TG._sample = recording
+    try:
+        s7, _ = TG.generate_ids(pb, ids, lens, 7, **kw)
+    finally:
+        TG._sample = sample
+    kept_sizes = []
+    for logits, t in seen:
+        lgf, idxs = TG._filter_logits(logits, 1.0, GPT_TOP_K, GPT_TOP_P)
+        live = lgf > TG._NEG
+        if not bool(((idxs == t[:, None]) & live).any(1).all()):
+            fail("a sampled token lies outside the top-k / top-p set")
+        kept_sizes += live.sum(1).tolist()
+    again, _ = TG.generate_ids(pb, ids, lens, 7, **kw)
+    other, _ = TG.generate_ids(pb, ids, lens, 8, **kw)
+    eos = int(tb[0, 3])
+    latched, nv = TG.generate_ids(pb, ids, lens, 0, heads=H, max_new=GPT_NEW,
+                                  cache_len=cache_len, eos_id=eos)
+    for b in range(GPT_B):
+        hits = (tb[b] == eos).nonzero()
+        f = int(hits[0]) if len(hits) else GPT_NEW - 1
+        if not (torch.equal(latched[b, :f + 1], tb[b, :f + 1])
+                and bool((latched[b, f + 1:] == eos).all())
+                and int(nv[b]) == min(f + 1, GPT_NEW)):
+            fail(f"eos {eos} did not latch in row {b}")
+    log(f"[generate] (d) sampling top_k {GPT_TOP_K}, top_p {GPT_TOP_P}, "
+        f"temperature 1: {len(seen)} steps x {GPT_B} draws all in the kept "
+        f"set (kept {min(kept_sizes)}-{max(kept_sizes)} tokens); seed 7 twice "
+        f"equal {torch.equal(s7, again)}, seed 8 differs "
+        f"{not torch.equal(s7, other)}; eos {eos} latches (n_valid "
+        f"{nv.tolist()}); {smi}")
+    if not torch.equal(s7, again) or torch.equal(s7, other):
+        fail("sampling does not follow its seed")
+    # no host wait inside the decode loop: GPT_NEW tokens wait as often
+    # as 2 (the set-up's copies), greedy, sampled and int8_dot
+    control = _host_waits(lambda: torch.ones(1, device="cuda").item())
+    waits = {}
+    for label, extra in (("greedy", {}), ("sampled", dict(
+            temperature=1.0, top_k=GPT_TOP_K, top_p=GPT_TOP_P)),
+            ("int8_dot", dict(int8_dot=True))):
+        waits[label] = [_host_waits(lambda: TG.generate_ids(
+            pb, ids, lens, 0, heads=H, max_new=n, cache_len=cache_len,
+            eos_id=eos, **extra)) for n in (2, GPT_NEW)]
+    log(f"[generate] (d) host waits for the card (sync debug mode) at 2 and "
+        f"{GPT_NEW} new tokens: {waits}; an .item() counts {control}; {smi}")
+    if control < 1 or any(a != b for a, b in waits.values()):
+        fail(f"the decode loop waits for the card: {waits}")
+
+    # (e) throughput: B x (f32, bf16, int8 weights) x (kv None, int8)
+    log(f"[generate] (e) throughput, prompt {GPT_TP_PROMPT}, "
+        f"{GPT_TP_NEW} new tokens, greedy, on {smi}")
+    models = {"f32": p32, "bf16": pb, "int8": q8}
+    tps = {}
+    cl = GPT_TP_PROMPT + GPT_TP_NEW
+    for B in GPT_TP_BATCHES:
+        ids_b = np.random.default_rng(B).integers(0, V, (B, GPT_TP_PROMPT))
+        lens_b = np.full(B, GPT_TP_PROMPT)
+        idt = torch.as_tensor(ids_b, device="cuda")
+        lt = torch.as_tensor(lens_b, device="cuda")
+        for dtype, params in models.items():
+            for kv in (False, True):
+                def run():
+                    return TG.generate_ids(params, ids_b, lens_b, 0, heads=H,
+                                           max_new=GPT_TP_NEW, cache_len=cl,
+                                           kv_int8=kv)[0].cpu()
+                run()
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                run()
+                wall = time.perf_counter() - t0
+                peak = torch.cuda.max_memory_allocated() - base
+                with torch.no_grad():
+                    pre = _cuda_ms(lambda: TG._prefill(params, idt, lt, H, cl,
+                                                       kv_int8=kv), 3)
+                step_ms = (wall * 1e3 - pre) / (GPT_TP_NEW - 1)
+                tps[(B, dtype, kv)] = B * GPT_TP_NEW / wall
+                log(f"[generate] B {B:3d} {dtype:4s} kv "
+                    f"{'int8' if kv else 'None'}: {tps[(B, dtype, kv)]:9.1f} "
+                    f"tokens/s end to end ({wall * 1e3:.1f} ms), prefill "
+                    f"{pre:.2f} ms, decode {step_ms:.3f} ms/step "
+                    f"({B / step_ms * 1e3:.1f} tokens/s), peak "
+                    f"{peak / 2 ** 30:.3f} GiB above the models")
+    for dtype in ("bf16", "int8"):
+        wins = [B for B in GPT_TP_BATCHES
+                if tps[(B, dtype, True)] >= tps[(B, dtype, False)]]
+        log(f"[generate] {dtype} weights: int8 KV at least as fast as the bf16 "
+            f"cache at B {wins} of {list(GPT_TP_BATCHES)} (the JAX "
+            f"crossover, kept: B >= {TG.KV_INT8_MIN_BATCH}); {smi}")
+    ids_b = np.random.default_rng(128).integers(0, V, (128, GPT_TP_PROMPT))
+    busy, events = _profile(
+        "generate profile B 128 bf16", lambda: TG.generate_ids(
+            pb, ids_b, np.full(128, GPT_TP_PROMPT), 0, heads=H,
+            max_new=GPT_TP_NEW, cache_len=cl)[0].cpu())
+    del models
+    return p32, lm_bf
+
+
+def _phase_vit(smi):
+    """ViT-base: 64 raw-RGB images through the flash kernel (S 197, no
+    mask): the kernel at that shape against its plain version, the
+    encoder against use_flash=False, images/s, the service. Returns the
+    main path's flash launches."""
+    import torch
+    from neurondb_tpu_torch.ml import bert as TB
+    from neurondb_tpu_torch.ml import vision as TV
+    from neurondb_tpu_torch.ops.kernels import flash_attention as FA
+    from neurondb_tpu_torch.service.embeddings import EmbeddingService
+    from neurondb_tpu_torch.service.llm import LLMRouter, LocalProvider
+    c = VIT_BASE
+    t0 = time.perf_counter()
+    enc = TV.VisionEncoder(TV.init_vit_params(1, **c), heads=c["heads"],
+                           device="cuda")
+    rng = np.random.default_rng(12)
+    blobs = [rng.integers(0, 256, (int(side), int(side), 3),
+                          dtype=np.uint8).tobytes()
+             for side in rng.integers(96, 321, VIT_IMAGES)]
+    t1 = time.perf_counter()
+    arr = np.stack([TV.preprocess_image(b, enc.image_size) for b in blobs])
+    prep_s = time.perf_counter() - t1
+    if not enc.use_flash:
+        fail("the ViT encoder must run the flash kernel on the card")
+    seen, restore = _catch(TB, "flash_attention")
+    try:
+        enc.embed_images(arr)                              # warm
+    finally:
+        restore()
+    (q, k, v, mask), _ = seen["args"]
+    got = FA.flash_attention(q, k, v, mask)
+    want = FA.flash_attention_plain(q, k, v, mask, bf16=True,
+                                    kv_tile=FA.KV_TILE)
+    err = float((got - want).abs().max())
+    log(f"[vit] ViT-base {c} (google/vit-base-patch16-224's geometry), random "
+        f"weights, set up in {t1 - t0:.2f} s; {VIT_IMAGES} raw RGB images of "
+        f"96-320 px preprocessed (nearest resize, no PIL) in {prep_s:.3f} s; "
+        f"flash kernel at {tuple(q.shape)}, mask {mask}, vs plain at its KV "
+        f"tile: max |diff| {err:.3e} (tolerance {FLASH_TOL[True]}); {smi}")
+    if tuple(q.shape) != (VIT_IMAGES, c["heads"], 197, 64) or mask is not None \
+            or not torch.allclose(got, want, rtol=FLASH_TOL[True],
+                                  atol=FLASH_TOL[True]):
+        fail(f"ViT flash kernel at {tuple(q.shape)} differs from plain by {err}")
+    del q, k, v, got, want, seen
+    _zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    emb = enc.embed_images(arr)
+    main_s = time.perf_counter() - t0
+    launches = dict(FA.LAUNCHES)
+    want_l = {"bf16": c["layers"], "f32": 0}
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        enc.embed_images(arr)
+        walls.append(time.perf_counter() - t0)
+    enc.use_flash = False
+    ref = enc.embed_images(arr)
+    enc.use_flash = True
+    diff = float(np.abs(emb - ref).max())
+    log(f"[vit] main path: VisionEncoder.embed_images({VIT_IMAGES} images) "
+        f"in {main_s * 1e3:.1f} ms, flash launches {launches} (want {want_l}); "
+        f"{VIT_IMAGES / float(np.median(walls)):.1f} images/s (median of "
+        f"{[round(w * 1e3, 1) for w in walls]} ms); vs use_flash=False max "
+        f"|diff| {diff:.3e} of |cls| up to {float(np.abs(ref).max()):.3f} "
+        f"(tolerance {VIT_FLASH_TOL}); {smi}")
+    if launches != want_l:
+        fail(f"the ViT made flash launches {launches}, not {want_l}")
+    if emb.shape != (VIT_IMAGES, c["hidden"]) or not np.isfinite(emb).all() \
+            or diff > VIT_FLASH_TOL:
+        fail(f"ViT embeddings off use_flash=False by {diff}")
+    # the service, one image a call: each result the batch's CLS row cut
+    # to the model config's dim and normalized (B 1 vs B 64 GEMMs: f32
+    # sums in another order)
+    svc = EmbeddingService(LLMRouter([LocalProvider(device="cuda")]))
+    svc.set_vision_encoder(enc)
+    dim = svc.get_model("default").dim
+    want = np.pad(emb[:, :dim], ((0, 0), (0, max(dim - emb.shape[1], 0))))
+    want /= np.linalg.norm(want, axis=1, keepdims=True)
+    t0 = time.perf_counter()
+    got = np.stack([svc.embed_image(b) for b in blobs])
+    svc_s = time.perf_counter() - t0
+    svc_err = float(np.abs(got - want).max())
+    if svc_err > 1e-4 or np.abs(np.linalg.norm(got, axis=1) - 1).max() > 1e-5:
+        fail(f"EmbeddingService.embed_image is {svc_err} off the ViT's unit CLS")
+    busy_ms, events = _profile(f"vit profile {VIT_IMAGES} images",
+                               lambda: enc.embed_images(arr))
+    flash = [e for e in events if "flash_bf16_kernel" in e.key]
+    flash_ms = sum(e.self_device_time_total for e in flash) / 1e3
+    log(f"[vit] EmbeddingService.embed_image on the {VIT_IMAGES} raw images, "
+        f"one a call: {VIT_IMAGES / svc_s:.1f} images/s, unit norm, within "
+        f"{svc_err:.2e} of the batch's CLS (dim {dim}; tolerance 1e-4); "
+        f"flash_bf16_kernel {flash_ms:.3f} ms over "
+        f"{sum(e.count for e in flash)} launches in the profiled batch, "
+        f"share {flash_ms / busy_ms:.4f} of {busy_ms:.2f} ms busy; {smi}")
+    return launches["bf16"]
+
+
+def _rag_corpus(rng):
+    """RAG_DOCS documents of RAG_SENTS sentences (6-14 words of the rerank
+    vocabulary); every document's sentences kept for the queries."""
+    words = np.asarray([f"w{i}" for i in range(2000)])
+    docs, sents = [], []
+    for _ in range(RAG_DOCS):
+        n = rng.integers(6, 15, RAG_SENTS)
+        w = words[rng.integers(0, 2000, int(n.sum()))]
+        ss = [" ".join(x) + "." for x in np.split(w, np.cumsum(n)[:-1])]
+        sents.append(ss)
+        docs.append(" ".join(ss))
+    return docs, sents
+
+
+def _phase_rag(smi, lm_bf):
+    """Client().rag() on a MiniLM-geometry export: 10,000 documents,
+    256 hybrid queries (self-hit), the dense side against f64 on the
+    host, then 64 answers through Client().llm. Returns the embed
+    call's flash launches."""
+    import torch
+    from neurondb_tpu_torch.client import Client
+    from neurondb_tpu_torch.ml import bert as TB
+    from neurondb_tpu_torch.ops.kernels import flash_attention as FA
+    from neurondb_tpu_torch.service.llm import LocalProvider
+    rng = np.random.default_rng(13)
+    t0 = time.perf_counter()
+    docs, sents = _rag_corpus(rng)
+    gen_s = time.perf_counter() - t0
+    wdir = tempfile.mkdtemp(prefix="ndb_minilm_")
+    old = os.environ.get("NEURONDB_TORCH_WEIGHTS")
+    try:
+        n_params = _write_bert_export(wdir, seed=3, c=MINILM)
+        os.environ["NEURONDB_TORCH_WEIGHTS"] = wdir
+        client = Client()
+        rag = client.rag()
+        # the first sub-batch's attention inputs, copied as the counted
+        # call makes them, for the kernel check below
+        seen, restore = _catch(TB, "flash_attention", clone=True)
+        _zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            rag.add_documents(docs)
+        finally:
+            restore()
+        add_s = time.perf_counter() - t0
+        launches = dict(FA.LAUNCHES)
+    finally:
+        if old is None:
+            os.environ.pop("NEURONDB_TORCH_WEIGHTS", None)
+        else:
+            os.environ["NEURONDB_TORCH_WEIGHTS"] = old
+        import shutil
+        shutil.rmtree(wdir, ignore_errors=True)
+    emb = client.llm.providers[0]._embedder
+    n_chunks = len(rag.chunks)
+    want_l = MINILM["layers"] * -(-n_chunks // emb.batch)
+    log(f"[rag] all-MiniLM-L6-v2 geometry {MINILM} ({n_params / 1e6:.1f} M "
+        f"params, random), {RAG_DOCS} documents of "
+        f"{np.mean([len(d) for d in docs]):.0f} characters (made in "
+        f"{gen_s:.2f} s) -> {n_chunks} chunks (512 / overlap 64); "
+        f"add_documents {add_s:.2f} s: "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in rag.build_seconds.items())
+        + f"; embed flash launches {launches} (want bf16 {want_l}: "
+        f"{MINILM['layers']} layers x {-(-n_chunks // emb.batch)} sub-batches "
+        f"of {emb.batch}); {smi}")
+    if launches != {"bf16": want_l, "f32": 0} or \
+            type(emb).__name__ != "PretrainedEmbedder":
+        fail(f"the RAG embed made flash launches {launches}, not bf16 {want_l}")
+    # the kernel at the embed's own shape (Dh 32, ragged key mask), held
+    # to its plain version on the inputs of the first sub-batch
+    (q, k, v, mask), _ = seen["args"]
+    got = FA.flash_attention(q, k, v, mask)
+    want = FA.flash_attention_plain(q, k, v, mask, bf16=True,
+                                    kv_tile=FA.KV_TILE)
+    err = float((got - want).abs().max())
+    pads = 0 if mask is None else int((mask == 0).sum())
+    log(f"[rag] flash kernel at the embed's first sub-batch {tuple(q.shape)}, "
+        f"key mask with {pads} padded keys, vs plain at its KV tile: max "
+        f"|diff| {err:.3e} (tolerance {FLASH_TOL[True]}); {smi}")
+    if tuple(q.shape) != (emb.batch, MINILM["heads"], emb.max_len, 32) \
+            or mask is None or pads == 0 \
+            or not torch.allclose(got, want, rtol=FLASH_TOL[True],
+                                  atol=FLASH_TOL[True]):
+        fail(f"RAG flash kernel at {tuple(q.shape)} differs from plain by "
+             f"{err}")
+    del q, k, v, mask, got, want, seen
+    # the counted call's embeddings (the index's vectors) against the
+    # embedder with use_flash=False on the same chunks
+    n0 = min(emb.batch, n_chunks)
+    main = rag._index._vecs[:n0].float().cpu().numpy()
+    emb.use_flash = False
+    try:
+        plain = np.asarray(emb(rag.chunks[:n0]), np.float32)
+    finally:
+        emb.use_flash = True
+    e_err = float(np.abs(main - plain).max())
+    cos = float(((main * plain).sum(1) / (np.linalg.norm(main, axis=1)
+                                          * np.linalg.norm(plain, axis=1))
+                 ).min())
+    log(f"[rag] the embed's vectors for the first {n0} chunks vs "
+        f"use_flash=False: max |diff| {e_err:.3e} (tolerance {RAG_EMB_TOL}), "
+        f"least cosine {cos:.7f}; {smi}")
+    if main.shape != plain.shape or not np.isfinite(main).all() \
+            or e_err > RAG_EMB_TOL:
+        fail(f"RAG embeddings off use_flash=False by {e_err}")
+    picks = rng.choice(RAG_DOCS, RAG_QUERIES, replace=False)
+    queries = [sents[d][int(rng.integers(RAG_SENTS))] for d in picks]
+    hits = {}
+    for weight in (0.0, 0.5):
+        t0 = time.perf_counter()
+        res = [rag.retrieve(q, k=5, hybrid=True, weight=weight)
+               for q in queries]
+        secs = time.perf_counter() - t0
+        hits[weight] = float(np.mean([r[0]["doc_id"] == d
+                                      for r, d in zip(res, picks)]))
+        log(f"[rag] retrieve(k=5, hybrid=True, weight={weight}) x "
+            f"{RAG_QUERIES}: self-hit {hits[weight]:.4f}"
+            f"{f' (bar {RAG_SELF_HIT_BAR})' if weight == 0.0 else ' (random weights: no bar)'}"
+            f", {RAG_QUERIES / secs:.1f} queries/s one at a time; {smi}")
+    if hits[0.0] < RAG_SELF_HIT_BAR:
+        fail(f"RAG text-only self-hit {hits[0.0]} < {RAG_SELF_HIT_BAR}")
+    # the dense side against f64 on the host, over the card's embeddings
+    E = rag._index._vecs.double().cpu().numpy()
+    bad = 0
+    for q in queries[:RAG_DENSE]:
+        qv = np.asarray(rag.embed([q]), np.float64)[0]
+        _, ids = rag._index.search(qv.astype(np.float32), k=5)
+        cos = E @ qv / (np.linalg.norm(E, axis=1) * np.linalg.norm(qv))
+        want = np.argsort(-cos, kind="stable")[:5]
+        for a, b in zip(ids, want):
+            if a != b and abs(cos[a] - cos[b]) > RAG_TIE_TOL:
+                bad += 1
+    log(f"[rag] dense top-5 of {RAG_DENSE} queries vs a float64 host "
+        f"recomputation over the card's {E.shape} embeddings: {bad} ids differ "
+        f"past ties (cosine within {RAG_TIE_TOL}); {smi}")
+    if bad:
+        fail(f"FlatIndex cosine top-5 differs from float64 at {bad} places")
+    # generation through the client's LLM router
+    client.llm.providers[:] = [LocalProvider(lm=lm_bf, device="cuda")]
+    prompts = [rag.context(q, k=3) + "\n\nQuestion: " + q + "\nAnswer:"
+               for q in queries[:RAG_GEN]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    answers = client.llm.complete_batch(prompts, max_tokens=RAG_GEN_NEW)
+    gen_wall = time.perf_counter() - t0
+    n_tok = [len(lm_bf.tok.encode(p)) for p in prompts]
+    log(f"[rag] Client().llm.complete_batch({RAG_GEN} prompts of "
+        f"{min(n_tok)}-{max(n_tok)} byte tokens (context k=3 + question), "
+        f"max_tokens {RAG_GEN_NEW}) -> LocalProvider -> GPT2LM (GPT-2 small, "
+        f"bf16; prompts cut to {lm_bf.max_len - RAG_GEN_NEW}, cache 1,056): "
+        f"{gen_wall:.2f} s, {RAG_GEN * RAG_GEN_NEW / gen_wall:.1f} tokens/s; "
+        f"{smi}")
+    if len(answers) != RAG_GEN or not all(isinstance(a, str) for a in answers):
+        fail("the LLM router did not answer every prompt")
+    return launches["bf16"]
+
+
+def phase_generate(smi):
+    """GPT-2 small decode, ViT-base and RAG end to end on the card (no
+    transformers, PIL or regex). Returns the flash kernel's bf16 launches
+    of the ViT and RAG main paths."""
+    t_phase = time.perf_counter()
+    block = _BlockImports(("transformers", "PIL", "regex"))
+    sys.meta_path.insert(0, block)
+    try:
+        loaded = [m for m in ("transformers", "PIL", "regex")
+                  if m in sys.modules]
+        if loaded:
+            fail(f"{loaded} already imported before phase_generate")
+        from neurondb_tpu_torch.ml.bpe import BPETokenizer
+        tok = BPETokenizer.byte_fallback()
+        p32, lm_bf = _phase_gpt(smi, tok)
+        del p32
+        n_vit = _phase_vit(smi)
+        n_rag = _phase_rag(smi, lm_bf)
+    finally:
+        sys.meta_path.remove(block)
+    log(f"[generate] phase in {time.perf_counter() - t_phase:.1f} s on {smi}")
+    return n_vit + n_rag
+
+
 def main(argv):
     import torch
     kernels_only = "--kernels-only" in argv
@@ -3022,6 +3721,7 @@ def main(argv):
         flat_launches[sh_mode] += n_grouped
         del x
         flash_launches = phase_rerank()
+        flash_launches["bf16"] += phase_generate(smi)
     kernels = []
     for name, stats, launches in (
             ("ivf_grouped_scan", flat_stats, flat_launches),

@@ -14,12 +14,16 @@ rerank and text-embedding path:
 - ``types``: the ten quantization formats and padded sparse vectors;
 - ``ml``: k-means (single and batched over subspaces), recall, the
   WordPiece tokenizer, the BERT and pre-LN encoders with their
-  embedders and cross-encoders;
+  embedders and cross-encoders, the ViT image encoder, the byte-level
+  BPE tokenizer and GPT-2 decode (KV cache, W8A8, int8 KV, sampling);
 - ``index``: ``FlatIndex``, ``QuantizedFlatIndex``, ``IVFFlatIndex``,
   ``PQIndex``, ``IVFPQIndex`` and ``HNSWIndex``;
-- ``search``: BM25, hybrid fusion, sparse retrieval, the query planner
-  and the rerankers;
-- ``client``: ``Collection`` and ``Client``;
+- ``search``: BM25, hybrid fusion, sparse retrieval, the query planner,
+  the rerankers and the RAG pipeline;
+- ``service``: the LLM router (local, OpenAI and HF providers, cache,
+  rate limit, fail-open, async jobs) and the embedding service;
+- ``client``: ``Collection`` and ``Client`` (with its LLM, embedding
+  and RAG services);
 - ``parallel`` (imported on its own, not by this module): a mesh of
   torch devices, the sharded flat, IVF, HNSW and IVF-PQ indexes, the
   two-level (DCN x ICI) IVF with its streaming build, and sharded

@@ -4,9 +4,12 @@ Counterpart of ``neurondb_tpu/client.py``. A ``Collection`` holds
 vectors, documents and metadata on the host, and builds its index and
 BM25 postings lazily on its ``device`` (default ``config.device``) over
 the port's five index kinds (flat, ivfflat, hnsw, pq, ivfpq); it serves
-ANN, hybrid search and stats. ``Client`` manages collections. Its ML,
-LLM, embedding and RAG services are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP item.
+ANN, hybrid search and stats. ``Client`` manages collections and serves
+the LLM router (``llm``: ``service.llm.router_from_config``), the
+embedding service (``embeddings``) and RAG pipelines (``rag()``), their
+models on the client's ``device``. Its ML runtime (``train``,
+``predict``, ``evaluate``) is not ported yet and raises
+``NotImplementedError`` naming ROADMAP queue 1 item 15.
 """
 
 from __future__ import annotations
@@ -166,12 +169,15 @@ class Collection:
 
 
 class Client:
-    """Top-level handle: collections on ``device``; the ML and LLM
-    services wait for later slices of the port."""
+    """Top-level handle: collections, the LLM router, the embedding
+    service and RAG pipelines on ``device``; the ML runtime waits for a
+    later slice of the port."""
 
     def __init__(self, device=None):
         self.device = resolve_device(device)
         self._collections: Dict[str, Collection] = {}
+        self._router = None
+        self._embeddings = None
 
     def create_collection(self, name: str, dim: int, **kw) -> Collection:
         if name in self._collections:
@@ -190,28 +196,36 @@ class Client:
     def list_collections(self) -> List[str]:
         return sorted(self._collections)
 
-    # ---- ML and services: not ported yet ----
+    # ---- ML: not ported yet ----
     def train(self, project: str, algorithm: str, X, y=None,
               hyperparams: Optional[Dict] = None) -> int:
-        raise NotImplementedError(_NOT_PORTED.format("the ML runtime", 15))
+        raise NotImplementedError(_NOT_PORTED)
 
     def predict(self, model_id: int, X) -> np.ndarray:
-        raise NotImplementedError(_NOT_PORTED.format("the ML runtime", 15))
+        raise NotImplementedError(_NOT_PORTED)
 
     def evaluate(self, model_id: int, X, y=None) -> Dict:
-        raise NotImplementedError(_NOT_PORTED.format("the ML runtime", 15))
+        raise NotImplementedError(_NOT_PORTED)
 
+    # ---- services ----
     @property
     def llm(self):
-        raise NotImplementedError(_NOT_PORTED.format("the LLM router", 16))
+        if self._router is None:
+            from neurondb_tpu_torch.service.llm import router_from_config
+            self._router = router_from_config(device=self.device)
+        return self._router
 
     @property
     def embeddings(self):
-        raise NotImplementedError(
-            _NOT_PORTED.format("the embedding service", 16))
+        if self._embeddings is None:
+            from neurondb_tpu_torch.service.embeddings import EmbeddingService
+            self._embeddings = EmbeddingService(self.llm)
+        return self._embeddings
 
     def rag(self, *, metric: str = "cosine", chunk_size: int = 512):
-        raise NotImplementedError(_NOT_PORTED.format("the RAG pipeline", 11))
+        from neurondb_tpu_torch.search.rag import RAGPipeline
+        return RAGPipeline(embed=lambda texts: self.embeddings.embed_batch(
+            texts), metric=metric, chunk_size=chunk_size, device=self.device)
 
 
-_NOT_PORTED = "{} is not ported yet (ROADMAP queue 1 item {})"
+_NOT_PORTED = "the ML runtime is not ported yet (ROADMAP queue 1 item 15)"

@@ -17,10 +17,11 @@ Counterpart of ``neurondb_tpu/ml/transformer.py``:
 Every model takes a ``device`` (default from ``config.device``: the card
 when one is present) and ``use_flash`` (default: on when that device is
 CUDA, where attention runs the hand-written kernel; the JAX package's
-default is on for a TPU). The cross-encoders score long doc lists in
-sub-batches without a host sync between them: ids go up from pinned host
+default is on for a TPU). The cross-encoders score long doc lists, and
+``PretrainedEmbedder`` embeds long text lists (one shot in the JAX
+package), in sub-batches without a host sync between them: ids go up from pinned host
 buffers with ``non_blocking`` copies, so tokenizing sub-batch i + 1
-overlaps the device's encode of sub-batch i, and the scores come back
+overlaps the device's encode of sub-batch i, and the results come back
 once at the end. Unlike the JAX package, the tail sub-batch is not
 padded (eager PyTorch compiles nothing per shape), and an empty doc or
 text list gives an empty result instead of an error.
@@ -176,21 +177,30 @@ def _normalize(emb: torch.Tensor) -> np.ndarray:
     return e / np.maximum(np.linalg.norm(e, axis=1, keepdims=True), 1e-12)
 
 
-def _pipelined_scores(model, inputs: Callable[[int, int], tuple], n: int,
-                      bs: int, device: torch.device, use_flash: bool
-                      ) -> np.ndarray:
-    """Scores of docs 0..n-1 in sub-batches of ``bs`` (one shot when
-    ``bs`` is 0 or n <= bs). ``inputs(lo, hi)`` tokenizes docs lo..hi-1
-    into host arrays; no sub-batch waits for the device."""
-    if n == 0:
-        return np.zeros(0, np.float32)
+def _pipelined(model, inputs: Callable[[int, int], tuple], n: int, bs: int,
+               device: torch.device, use_flash: bool, key: str
+               ) -> torch.Tensor:
+    """The model's output ``key`` for items 0..n-1 (n > 0) in sub-batches
+    of ``bs`` (one shot when ``bs`` is 0 or n <= bs), concatenated on the
+    device. ``inputs(lo, hi)`` tokenizes items lo..hi-1 into host arrays;
+    no sub-batch waits for the device."""
     step = bs if bs and n > bs else n
     outs = []
     for lo in range(0, n, step):
         arrays = inputs(lo, min(lo + step, n))
         out = model(*(_upload(a, device) for a in arrays), use_flash=use_flash)
-        outs.append(out["score"])          # queued on the device, no sync
-    return torch.cat(outs).cpu().numpy()
+        outs.append(out[key])              # queued on the device, no sync
+    return torch.cat(outs)
+
+
+def _pipelined_scores(model, inputs: Callable[[int, int], tuple], n: int,
+                      bs: int, device: torch.device, use_flash: bool
+                      ) -> np.ndarray:
+    """Scores of docs 0..n-1 (``_pipelined``'s sub-batches) on the host."""
+    if n == 0:
+        return np.zeros(0, np.float32)
+    return _pipelined(model, inputs, n, bs, device, use_flash,
+                      "score").cpu().numpy()
 
 
 def _use_flash(use_flash: Optional[bool], device: torch.device) -> bool:
@@ -275,14 +285,20 @@ def _load_export(weights_dir: str, max_len: int, device):
 class PretrainedEmbedder:
     """Sentence embedder over exported weights (``scripts/export_hf.py``
     output dir: weights.npz + vocab.txt + config.json): WordPiece, the
-    BERT encoder, masked mean pooling and an L2 norm."""
+    BERT encoder, masked mean pooling and an L2 norm. Texts are encoded
+    in sub-batches of ``batch`` (pipelined like the cross-encoders'; a
+    RAG corpus's tens of thousands of chunks in one shot would not fit a
+    card), where the JAX embedder encodes every text in one call; the
+    embeddings equal the one-shot ones within 1e-5."""
 
     def __init__(self, weights_dir: str, *, max_len: int = 128,
-                 use_flash: Optional[bool] = None, device=None):
+                 use_flash: Optional[bool] = None, batch: int = 1024,
+                 device=None):
         self.device = resolve_device(device)
         self.model, self.tok, self.max_len = _load_export(
             weights_dir, max_len, self.device)
         self.heads = self.model.heads
+        self.batch = batch
         self.use_flash = _use_flash(use_flash, self.device)
 
     @property
@@ -296,10 +312,11 @@ class PretrainedEmbedder:
     def __call__(self, texts: Sequence[str]) -> np.ndarray:
         if len(texts) == 0:
             return np.zeros((0, self.dim), np.float32)
-        ids, types = self.tok.encode_batch(list(texts), self.max_len)
-        out = self.model(_upload(ids, self.device),
-                         _upload(types, self.device), use_flash=self.use_flash)
-        return _normalize(out["mean_pooled"])
+        def inputs(lo, hi):
+            return self.tok.encode_batch(list(texts[lo:hi]), self.max_len)
+        return _normalize(_pipelined(self.model, inputs, len(texts),
+                                     self.batch, self.device, self.use_flash,
+                                     "mean_pooled"))
 
 
 class PretrainedCrossEncoder:

@@ -1,5 +1,5 @@
 """Search orchestration: BM25, hybrid fusion, sparse retrieval, the
-planner and the rerankers."""
+planner, the rerankers and the RAG pipeline (``search.rag``)."""
 
 from neurondb_tpu_torch.search.bm25 import BM25Index  # noqa: F401
 from neurondb_tpu_torch.search.hybrid import (  # noqa: F401

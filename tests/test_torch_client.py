@@ -198,15 +198,23 @@ def test_client_delete_last_docs_clears_bm25(rng):
 
 
 def test_client_services_name_their_roadmap_item():
+    """The ML runtime still raises naming its item; the LLM router, the
+    embedding service and RAG now serve (on the client's device)."""
     c = Client(device="cpu")
-    for call, item in ((lambda: c.train("p", "linear", None), "item 15"),
-                       (lambda: c.predict(1, None), "item 15"),
-                       (lambda: c.evaluate(1, None), "item 15"),
-                       (lambda: c.llm, "item 16"),
-                       (lambda: c.embeddings, "item 16"),
-                       (lambda: c.rag(), "item 11")):
-        with pytest.raises(NotImplementedError, match=item):
+    for call in (lambda: c.train("p", "linear", None),
+                 lambda: c.predict(1, None), lambda: c.evaluate(1, None)):
+        with pytest.raises(NotImplementedError, match="item 15"):
             call()
+    jc = JClient()
+    assert type(c.llm).__name__ == type(jc.llm).__name__ == "LLMRouter"
+    assert c.llm.complete("one. two.") == jc.llm.complete("one. two.")
+    assert c.embeddings.embed_text("text").shape == \
+        jc.embeddings.embed_text("text").shape == (256,)
+    rag = c.rag(chunk_size=64)
+    assert (rag.metric, rag.chunk_size, rag.device) == \
+        ("cosine", 64, c.device)
+    rag.add_documents(["alpha beta gamma. delta epsilon.", "zeta eta theta."])
+    assert rag.retrieve("zeta eta", k=1, weight=0.0)[0]["doc_id"] == 1
     with pytest.raises(ValueError, match="unknown index kind"):
         col = c.create_collection("bad", 4, index="annoy")
         col.add(np.zeros((2, 4), np.float32))

@@ -881,3 +881,113 @@ def test_sharded_ivfpq_on_card_runs_the_fused_kernel(dev):
     _, ids = idx.search(q, k=10, nprobe=8)
     assert PQS.LAUNCHES == before + 4
     assert (ids[:, 0] == np.arange(256)).mean() >= 0.99
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 768, 2304), (16, 768, 50257),
+                                   (17, 3072, 768), (128, 768, 50257),
+                                   (3, 20, 13)])
+def test_gpt_int8_matmul_on_card_is_exact(dev, M, K, N):
+    """The W8A8 int32 accumulate (``torch._int_mm`` on padded operands)
+    equals the exact f64 sums bit for bit, at decode shapes below its
+    17-row floor and at the lm head's 50,257 columns."""
+    from neurondb_tpu_torch.ml import gpt as TG
+    g = torch.Generator(device=dev).manual_seed(M)
+    xq = torch.randint(-127, 128, (M, K), generator=g, device=dev).to(torch.int8)
+    wq = torch.randint(-127, 128, (K, N), generator=g, device=dev).to(torch.int8)
+    xq[0] = 127
+    wq[:, 0] = -127
+    got = TG.int8_matmul(xq, wq)
+    assert got.dtype == torch.int32 and got.shape == (M, N)
+    assert torch.equal(got, TG.int8_matmul_plain(xq, wq))
+
+
+def test_tiny_gpt_on_card_matches_cpu(dev):
+    """One f32 tree on the card and the CPU: the same greedy tokens, each
+    the no-cache argmax on the card; int8 weights and an int8 cache run."""
+    from neurondb_tpu_torch.ml import gpt as TG
+    from neurondb_tpu_torch.ml.bpe import BPETokenizer
+    p = TG.init_gpt_params(0, vocab_size=300, hidden=64, layers=2, heads=2,
+                           max_len=128)
+    rng = np.random.default_rng(0)
+    ids = np.zeros((3, 16), np.int64)
+    lens = np.asarray([16, 5, 9])
+    for b, n in enumerate(lens):
+        ids[b, 16 - n:] = rng.integers(0, 300, n)
+    kw = dict(heads=2, max_new=12, cache_len=32)
+    cpu, _ = TG.generate_ids(p, ids, lens, 0, **kw)
+    pd = tree_map(lambda t: t.to(dev), p)
+    card, n_valid = TG.generate_ids(pd, ids, lens, 0, **kw)
+    assert card.device.type == "cuda" and torch.equal(card.cpu(), cpu)
+    for b in range(3):
+        seq = torch.cat([torch.from_numpy(ids[b, 16 - lens[b]:]), cpu[b]])
+        lg = TG.gpt_logits(pd, seq[None].to(dev), heads=2)[0]
+        assert torch.equal(lg[lens[b] - 1:-1].argmax(-1).cpu(), cpu[b])
+    lm = TG.GPT2LM(pd, BPETokenizer.byte_fallback(), heads=2, dtype="int8",
+                   kv_dtype="int8", device=dev)
+    assert lm.params["blocks"][0]["w_qkv"][0].device.type == "cuda"
+    out = lm.complete_batch([[1, 2, 3], [4] * 20], max_tokens=6)
+    assert len(out) == 2 and all(isinstance(t, str) for t in out)
+
+
+def _host_waits(fn):
+    """How often ``fn`` makes the host wait for the card, counted by the
+    sync debug mode's warnings."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchronizing" in str(w.message) for w in caught)
+
+
+@pytest.mark.parametrize("kw", [{}, dict(temperature=0.8, top_k=50, top_p=0.9),
+                                dict(temperature=1.0, top_p=0.9),
+                                dict(int8_dot=True)],
+                         ids=["greedy", "top_k_top_p", "top_p", "int8_dot"])
+def test_gpt_decode_steps_never_wait_for_the_card(dev, kw):
+    """generate_ids waits for the card only in its set-up: 12 decoded
+    tokens make as many host waits as 2."""
+    from neurondb_tpu_torch.ml import gpt as TG
+    p = tree_map(lambda t: t.to(dev), TG.init_gpt_params(
+        0, vocab_size=300, hidden=64, layers=2, heads=2, max_len=128))
+    ids = np.random.default_rng(0).integers(0, 300, (3, 16))
+    lens = np.asarray([16, 5, 9])
+
+    def run(n):
+        return lambda: TG.generate_ids(p, ids, lens, 0, heads=2, max_new=n,
+                                       cache_len=32, eos_id=7, **kw)
+    run(12)()
+    torch.cuda.synchronize()
+    assert _host_waits(lambda: torch.ones(1, device=dev).item()) >= 1
+    assert _host_waits(run(12)) == _host_waits(run(2))
+
+
+def test_vit_on_card_runs_the_flash_kernel(dev):
+    """ViT attention (no mask, S = 17 patches + CLS: a ragged KV tile)
+    through the flash kernel, one launch a layer, against the reference
+    attention on the CPU."""
+    from neurondb_tpu_torch.ml import vision as TV
+    p = TV.init_vit_params(0, hidden=128, layers=2, heads=2, ff=256,
+                           patch=8, image_size=32)
+    img = np.random.default_rng(1).standard_normal((3, 32, 32, 3)).astype(
+        np.float32)
+    cpu = TV.VisionEncoder(p, heads=2, device="cpu").embed_images(img)
+    enc = TV.VisionEncoder(p, heads=2, device=dev)
+    assert enc.use_flash
+    before = dict(FA.LAUNCHES)
+    card = enc.embed_images(img)
+    assert FA.LAUNCHES == {"bf16": before["bf16"] + 2, "f32": before["f32"]}
+    np.testing.assert_allclose(card, cpu, rtol=5e-3, atol=5e-3)
+
+
+def test_client_rag_on_card(dev):
+    from neurondb_tpu_torch.client import Client
+    c = Client(device=dev)
+    rag = c.rag(chunk_size=64)
+    rag.add_documents(["alpha beta gamma. delta epsilon.", "zeta eta theta."])
+    assert rag._index._vecs.device.type == "cuda"
+    assert rag.retrieve("zeta eta", k=1, weight=0.0)[0]["doc_id"] == 1
+    assert c.embeddings.embed_text("x").shape == (256,)

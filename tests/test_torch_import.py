@@ -427,3 +427,59 @@ def test_parallel_slice_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_generate_slice_imports_without_jax():
+    """GPT decode, BPE, ViT, the LLM router, the embedding service and
+    RAG load where jax and the JAX package cannot be imported, and load
+    neither; the service package exports the JAX one's names."""
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'neurondb_tpu'):\n"
+        "            raise ImportError(name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "from neurondb_tpu_torch.ml import bpe, gpt, vision\n"
+        "from neurondb_tpu_torch.service import llm, embeddings\n"
+        "from neurondb_tpu_torch.search import rag\n"
+        "import neurondb_tpu_torch.service as svc\n"
+        "assert svc.LLMRouter and svc.LLMCache and svc.EmbeddingService\n"
+        "from neurondb_tpu_torch.client import Client\n"
+        "c = Client(device='cpu')\n"
+        "assert c.llm.complete('a. b.').startswith('[extractive-local]')\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'neurondb_tpu')))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_gpt_int8_matmul_pads_for_int_mm(monkeypatch):
+    """The card's W8A8 product: ``torch._int_mm`` on operands padded to
+    more than 16 rows and to a depth and width that are multiples of 8,
+    the int32 sums exact (here ``_int_mm`` runs on CPU tensors); CPU
+    tensors take the plain f64 sums and never ``_int_mm``."""
+    from neurondb_tpu_torch.ml import gpt
+    seen = []
+    int_mm = torch._int_mm
+
+    def recording(a, b):
+        seen.append((tuple(a.shape), tuple(b.shape)))
+        return int_mm(a, b)
+
+    monkeypatch.setattr(torch, "_int_mm", recording)
+    g = torch.Generator().manual_seed(0)
+    for M, K, N, want in ((3, 20, 13, ((32, 24), (24, 16))),
+                          (40, 768, 2304, ((40, 768), (768, 2304))),
+                          (16, 768, 50257, ((32, 768), (768, 50264)))):
+        xq = torch.randint(-127, 128, (M, K), generator=g).to(torch.int8)
+        wq = torch.randint(-127, 128, (K, N), generator=g).to(torch.int8)
+        seen.clear()
+        got = gpt._int_mm_padded(xq, wq)
+        assert seen == [want] and got.shape == (M, N)
+        assert torch.equal(got, gpt.int8_matmul_plain(xq, wq))
+        seen.clear()
+        assert torch.equal(gpt.int8_matmul(xq, wq), got) and seen == []
