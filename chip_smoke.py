@@ -215,6 +215,49 @@ visible):
 - the phase's launches join the kernels line's rows (probe exact, PQ
   exact, grouped in the bootstrap's mode), and its wall seconds print.
 
+The store, specialty, validate, graph and ML checks (no kernel of their
+own; ROADMAP items 14 and 15):
+
+- after 7, ``validate_index`` on 5's 1M ``IVFFlatIndex`` (bf16 store): the
+  sampled rows' recomputed labels that differ and those within the bf16
+  rounding bound; a list count off by one must turn it invalid;
+- between 7 and 9, on 5's corpus, 1,024 queries, k 10 (``phase_store``):
+  ``VectorStore(128)`` f32 and bf16 filled in ``add`` batches of 65,536 to
+  capacity 1,048,576 (rows/s, memory held), l2 and cosine against
+  ``FlatIndex`` (the f32 store's ids equal apart from distance ties), QPS;
+  1% of ids deleted (none returned), ``compact``, equal to a fresh store of
+  the survivors byte for byte; ``RerankReadyIndex(x, k=32)``: ``warm``, then
+  1,024 lookups that must all hit with no device event under
+  ``torch.profiler``, and 64 misses after the cache is emptied that return
+  the hits' ids; ``ConsistentIndex``: pin, 10,000 rows added, 1% deleted,
+  pin again: the first pin's results byte-identical before and after, each
+  pin's searches byte-identical;
+- in 9, after the ef sweep: ``validate_index`` on the 1M ``HNSWIndex`` (its
+  reachable fraction; a planted self loop must turn it invalid), then its
+  level-0 adjacency (1M x 32) as a ``VectorGraph`` on the card: ``bfs`` from
+  the entry (its reachable share must equal validate's exactly),
+  ``connected_components`` (passes, seconds), ``pagerank`` (50
+  iterations, sums to 1 within 1e-4), ``community_labels`` (20 iterations,
+  equal to the CPU's on the 20,000-node induced subgraph);
+- after the hybrid phase, the ML runtime (``phase_ml``) through
+  ``Client(device="cuda").train / predict / evaluate`` on the 1M x 128
+  table with seeded targets (``y = X w + 0.1 e``, ``X w > median``, the
+  argmax of ``X W + e`` over 10 classes): every ported algorithm at its
+  JAX defaults (k-means and mini-batch k-means at k 256, GMM at k 64, PCA
+  at 32 components with and without whitening, the dual SVM at its
+  default sample_cap 8,192; DBSCAN and agglomerative clustering on the
+  first 10,000 rows), each line its train seconds, predict rows/s on
+  16,384 rows and its metrics, each model persisted and reloaded to
+  predict bit for bit; held to: the f64 normal equations (linear, ridge),
+  f64 ``numpy.linalg.eigh`` (PCA eigenvalues), f64 class moments (naive
+  Bayes), the f64 inertia of the returned centroids (k-means), votes and
+  weights from ``FlatIndex``'s exact neighbours on 1,024 rows (kNN), the
+  labels' Bayes-optimal accuracy less ``ACC_MARGIN``, counted from
+  ``client.predict`` on the whole table (logistic, SVM), a
+  log-likelihood above the k-means++ start (GMM); the JAX-format models
+  in ``tests/data/jax_registry`` load on the card and predict as the JAX
+  package did on the CPU; the phase's seconds and peak memory.
+
 Any failed check ends the run with a non-zero exit. The line before the
 last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -379,6 +422,44 @@ RAG_TIE_TOL = 1e-5        # cosine: f32 card products vs f64 on the host
 # the embed's unit vectors, flash vs use_flash=False: 6.4x the reading
 # 7.8e-5 (NVIDIA H100 80GB HBM3, 700 W)
 RAG_EMB_TOL = 5e-4
+# store, specialty and validate (phase_store on the main path's corpus; the
+# validate and graph checks beside phase_main's IVF and phase_hnsw's graph)
+STORE_BATCH = 65_536        # VectorStore.add batch
+STORE_NQ = 1024             # queries of the store and specialty checks
+STORE_DELETE = 0.01         # share of ids deleted
+RRI_K = 32                  # RerankReadyIndex candidates a query
+RRI_MISSES = 64             # lookups after the cache is emptied
+CQ_ADD = 10_000             # rows added between the two pins
+GRAPH_SUB = 20_000          # community_labels held to the CPU on this subgraph
+GRAPH_PR_ITERS, GRAPH_CL_ITERS = 50, 20
+PR_SUM_TOL = 1e-4
+# the ML runtime (phase_ml) on config 1's corpus
+ML_LABEL_SEED = 7
+ML_PREDICT_ROWS = 16_384
+ML_SMALL_ROWS = 10_000      # DBSCAN and agglomerative: the module's scale
+ML_KNN_CHECK = 1024
+ML_PHASE_S = 150
+# about 10x the readings of PR 15's chip runs 4-5 (NVIDIA H100 80GB HBM3,
+# 700 W): linear / ridge 4.97e-6, PCA 3.47e-5, naive Bayes 6.1e-7; a TF32
+# Gram, covariance or moment GEMM moves them by ~1e-4 to 1e-3
+LIN_RTOL = 5e-5
+PCA_RTOL = 3.5e-4
+NB_RTOL = 6e-6
+INERTIA_RTOL = 1e-4
+KNN_RTOL = 1e-4
+# accuracy bars: the labels' Bayes-optimal accuracy (1.0 for the noiseless
+# binary label) less a margin for the fixed step budgets of the JAX
+# defaults (50 Newton steps; 500 and 300 gradient steps sized by the mean
+# squared row norm; 256 random features). On the card they read 0.9991,
+# 0.5826 (Bayes-optimal 0.6557), 0.9310, 0.9757 and 0.7907 (NVIDIA H100
+# 80GB HBM3, 700 W); a broken fit reads ~0.5 (binary) or ~0.1 (10 classes).
+ACC_MARGIN = {"logistic binary": 0.02, "logistic 10-class": 0.12,
+              "svm primal": 0.1, "svm dual": 0.05, "svm rff": 0.3}
+# the port's accuracy (an f32 mean of 0 / 1 over 1M rows: exact sums, one
+# rounding in the division) against the host's count
+ACC_AGREE = 1e-6
+FIXTURE_TIE = 1e-4
+FIXTURE_TOL = 1e-4
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -1514,6 +1595,8 @@ def phase_hnsw(x, qb, gt, exact, smi):
     sub = int(max(64, min(4096, (1 << 32) // index._ncap)))  # one sub-batch
     _profile(f"hnsw profile ef {chosen} batch {sub}",
              lambda: index.search(qb[:sub], k=K, ef=chosen))
+
+    _hnsw_validate_and_graph(index, smi)
 
     # mutation: add, self-query, delete, compact
     rng = np.random.default_rng(7)
@@ -3686,6 +3769,577 @@ def phase_generate(smi):
     return n_vit + n_rag
 
 
+def _tie_swaps(d_a, i_a, d_b, i_b):
+    """Where two exact scans return other ids at a position, whether their
+    distances there agree within SH_FLAT_TIE_RTOL (a tie swapped):
+    (positions that differ, all of them ties)."""
+    swap = i_a != i_b
+    tie = np.abs(d_a - d_b) <= SH_FLAT_TIE_RTOL * np.abs(d_b)
+    return int(swap.sum()), bool(tie[swap].all())
+
+
+def phase_store(x, qb, smi):
+    """VectorStore (f32 and bf16), RerankReadyIndex and ConsistentIndex on
+    the main path's 1M x 128 corpus, 1,024 queries, k 10."""
+    import torch
+    import neurondb_tpu_torch as nt
+    from neurondb_tpu_torch.ml.metrics import recall_at_k
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    t_phase = time.perf_counter()
+    n, dim = x.shape
+    q = qb[:STORE_NQ]
+    flat = {}
+    for metric in ("l2", "cosine"):
+        f = nt.FlatIndex(x, metric=metric, device="cuda")
+        flat[metric] = f.search(q, k=K)
+        del f
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(11)
+    drop = np.sort(rng.choice(n, int(STORE_DELETE * n), replace=False))
+    keep = np.setdiff1d(np.arange(n), drop)
+
+    for dtype in ("float32", "bfloat16"):
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        store = nt.VectorStore(dim, dtype=dtype, device="cuda")
+        t0 = time.perf_counter()
+        for s in range(0, n, STORE_BATCH):
+            store.add(x[s:s + STORE_BATCH])
+        torch.cuda.synchronize()
+        add_s = time.perf_counter() - t0
+        held = torch.cuda.memory_allocated() - mem0
+        if store.capacity != 1 << max(10, (n - 1).bit_length()) or \
+                len(store) != n:
+            fail(f"VectorStore {dtype}: capacity {store.capacity}, {len(store)} "
+                 f"rows after adding {n}")
+        log(f"[store] VectorStore({dim}, {dtype}): {n} rows added in batches "
+            f"of {STORE_BATCH} in {add_s:.2f} s ({n / add_s:.0f} rows/s), "
+            f"capacity {store.capacity}, {held / 2**20:.1f} MiB held on {smi}")
+        for metric in ("l2", "cosine"):
+            d, ids = store.search(q, k=K, metric=metric)
+            fd, fi = flat[metric]
+            nswap, ties = _tie_swaps(d, ids, fd, fi)
+            qps, reps = _qps(lambda: store.search(q, k=K, metric=metric),
+                             STORE_NQ, reps=3, n_batches=1)
+            how = (f"all at distance ties within {SH_FLAT_TIE_RTOL:.0e}: "
+                   f"{ties}" if dtype == "float32" else "bf16 rows")
+            log(f"[store] {dtype} {metric}: recall@10 vs FlatIndex "
+                f"{recall_at_k(ids, fi):.4f}, {nswap} of {ids.size} ids "
+                f"differ ({how}); QPS median {qps:.0f} of "
+                f"{[round(v) for v in reps]} ({STORE_NQ} queries a search)")
+            if dtype == "float32" and not ties:
+                fail(f"the f32 VectorStore ({metric}) disagrees with "
+                     f"FlatIndex past a distance tie")
+            if recall_at_k(ids, fi) < RECALL_BAR:
+                fail(f"VectorStore {dtype} {metric} recall@10 under "
+                     f"{RECALL_BAR} against FlatIndex")
+        removed = store.delete(drop)
+        _, ids = store.search(q, k=K)
+        if removed != len(drop) or np.isin(ids, drop).any():
+            fail(f"VectorStore {dtype}: a deleted id was returned (or the "
+                 f"delete missed ids: {removed} of {len(drop)})")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        store.compact()
+        torch.cuda.synchronize()
+        compact_s = time.perf_counter() - t0
+        fresh = nt.VectorStore(dim, dtype=dtype, device="cuda")
+        for s in range(0, len(keep), STORE_BATCH):
+            part = keep[s:s + STORE_BATCH]
+            fresh.add(x[part], ids=part)
+        same = (torch.equal(store.vectors, fresh.vectors)
+                and torch.equal(store.sqnorms, fresh.sqnorms)
+                and torch.equal(store.valid, fresh.valid)
+                and np.array_equal(store.ids, fresh.ids))
+        for metric in ("l2", "cosine"):
+            a, b = store.search(q, k=K, metric=metric), fresh.search(
+                q, k=K, metric=metric)
+            same &= all(u.tobytes() == v.tobytes() for u, v in zip(a, b))
+        log(f"[store] {dtype}: deleted {removed} ids (none returned), "
+            f"compact in {compact_s:.2f} s to {len(store)} rows, capacity "
+            f"{store.capacity}; equal to a fresh store of the survivors "
+            f"(rows, norms, ids, both metrics' results byte for byte): {same}")
+        if not same:
+            fail(f"the compacted {dtype} VectorStore differs from a fresh "
+                 f"store of the survivors")
+        del store, fresh
+        torch.cuda.empty_cache()
+
+    # RerankReadyIndex: warm, then every lookup a hit without a launch
+    t0 = time.perf_counter()
+    rri = nt.RerankReadyIndex(x, k=RRI_K, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    added = rri.warm(q)
+    warm_s = time.perf_counter() - t0
+    hits = []
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(STORE_NQ):
+            hits.append(rri.get_candidates(q[i]))
+        hit_s = time.perf_counter() - t0
+    device_events = [e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA]
+    if rri.hits != STORE_NQ or rri.misses or device_events:
+        fail(f"RerankReadyIndex: {rri.hits} hits, {rri.misses} misses, "
+             f"{len(device_events)} device events over {STORE_NQ} warmed "
+             f"lookups")
+    rri._cache.clear()
+    t0 = time.perf_counter()
+    nswap = 0
+    for i in range(RRI_MISSES):
+        d, ids, vecs = rri.get_candidates(q[i])
+        sw, ties = _tie_swaps(d, ids, hits[i][0], hits[i][1])
+        nswap += sw
+        if not ties or not np.array_equal(vecs[ids == hits[i][1]],
+                                          hits[i][2][ids == hits[i][1]]):
+            fail(f"RerankReadyIndex: a miss returns other candidates than "
+                 f"the warmed hit for query {i}")
+    miss_s = time.perf_counter() - t0
+    log(f"[rri] RerankReadyIndex(x, k={RRI_K}) in {build_s:.2f} s; warm "
+        f"{STORE_NQ} queries ({added} distinct) in {warm_s:.2f} s; "
+        f"{STORE_NQ} lookups all hits, {hit_s / STORE_NQ * 1e6:.1f} us each, "
+        f"0 device events under the profiler; {RRI_MISSES} misses "
+        f"{miss_s / RRI_MISSES * 1e3:.2f} ms each return the hits' ids "
+        f"({nswap} differ, all at distance ties) on {smi}")
+    del rri, hits
+    torch.cuda.empty_cache()
+
+    # ConsistentIndex: a pin survives adds and deletes, byte for byte
+    ci = nt.ConsistentIndex(x, device="cuda")
+    p1 = ci.pin()
+    t0 = time.perf_counter()
+    a1 = ci.search(q, k=K, snapshot=p1)
+    search_s = time.perf_counter() - t0
+    a2 = ci.search(q, k=K, snapshot=p1)
+    new = x[rng.choice(n, CQ_ADD, replace=False)] + \
+        0.5 * rng.standard_normal((CQ_ADD, dim)).astype(np.float32)
+    ci.add(new)
+    gone = rng.choice(ci.n, int(STORE_DELETE * ci.n), replace=False)
+    removed = ci.delete(gone)
+    p2 = ci.pin()
+    a3 = ci.search(q, k=K, snapshot=p1)
+    b1 = ci.search(q, k=K, snapshot=p2)
+    b2 = ci.search(q, k=K, snapshot=p2)
+    same_pin = all(u.tobytes() == v.tobytes() == w.tobytes()
+                   for u, v, w in zip(a1, a2, a3))
+    same_p2 = all(u.tobytes() == v.tobytes() for u, v in zip(b1, b2))
+    r = recall_at_k(a1[1], flat["l2"][1])
+    log(f"[cq] ConsistentIndex: pin 1, {CQ_ADD} rows added, {removed} ids "
+        f"deleted, pin 2 ({ci.n} rows); pin 1's results byte-identical "
+        f"before and after: {same_pin}; pin 2's two searches "
+        f"byte-identical: {same_p2}; a deleted id returned at pin 2: "
+        f"{bool(np.isin(b1[1], gone).any())}; recall@10 at pin 1 vs "
+        f"FlatIndex {r:.4f}; {STORE_NQ} queries in {search_s * 1e3:.1f} ms")
+    if not (same_pin and same_p2) or np.isin(b1[1], gone).any() or \
+            r < RECALL_BAR:
+        fail("ConsistentIndex snapshots are not stable, or pin 2 returned a "
+             "deleted id")
+    del ci
+    torch.cuda.empty_cache()
+    log(f"[store] phase in {time.perf_counter() - t_phase:.1f} s on {smi}")
+
+
+def _validate_ivf_checks(index, smi):
+    """validate_index on the main path's 1M IVFFlatIndex (bf16 store), and
+    a row count off by one that must turn the report invalid."""
+    from neurondb_tpu_torch.index.validate import validate_index
+    t0 = time.perf_counter()
+    r = validate_index(index)
+    secs = time.perf_counter() - t0
+    checks = {c["check"]: c for c in r["checks"]}
+    a = checks["assignment_consistency"]
+    log(f"[validate] IVFFlatIndex ({index.n} rows, {index._vecs.dtype} "
+        f"store) in {secs:.2f} s: valid {r['valid']}; assignment of 256 "
+        f"sampled rows: {a['mismatches']} recomputed labels differ, "
+        f"{a['within_bound']} of them within the bf16 rounding bound; "
+        f"imbalance {checks['list_balance']['imbalance']:.2f}, empty lists "
+        f"{checks['list_balance']['empty_lists']} on {smi}")
+    if not r["valid"]:
+        fail(f"validate_index reports the IVF index invalid: {r}")
+    saved = index._counts
+    counts = saved.clone()
+    counts[0] -= 1
+    index._counts = counts
+    try:
+        bad = validate_index(index)
+    finally:
+        index._counts = saved
+    log(f"[validate] IVF with one list's count off by one: valid "
+        f"{bad['valid']}")
+    if bad["valid"]:
+        fail("validate_index missed a row count off by one")
+
+
+def _hnsw_validate_and_graph(index, smi):
+    """validate_index on the 1M HNSWIndex (and a planted self loop), then
+    its level-0 adjacency as a VectorGraph on the card: BFS from the entry
+    (its reachable share equal to validate's), connected components,
+    PageRank, community labels (held to the CPU on an induced subgraph)."""
+    import torch
+    from neurondb_tpu_torch.index.validate import validate_index
+    from neurondb_tpu_torch.types import graph as VG
+    t0 = time.perf_counter()
+    r = validate_index(index)
+    secs = time.perf_counter() - t0
+    checks = {c["check"]: c for c in r["checks"]}
+    frac = checks["connectivity_from_entry"]["reachable_fraction"]
+    log(f"[validate] HNSWIndex ({index.n} rows) in {secs:.2f} s: valid "
+        f"{r['valid']}; reachable fraction from the entry {frac}; mean "
+        f"degree {checks['degree_bounds']['mean_degree']:.2f}")
+    if not r["valid"]:
+        fail(f"validate_index reports the HNSW graph invalid: {r}")
+    row = index.n // 3
+    saved = index._nbr0[row, 0].clone()
+    index._nbr0[row, 0] = row
+    try:
+        bad = validate_index(index)
+    finally:
+        index._nbr0[row, 0] = saved
+    loops = [c for c in bad["checks"] if c["check"] == "no_self_loops"][0]
+    log(f"[validate] HNSW with a planted self loop: valid {bad['valid']}, "
+        f"self loops {loops['count']}")
+    if bad["valid"] or loops["count"] != 1:
+        fail("validate_index missed a planted self loop")
+
+    n = index.n
+    nbr = index._nbr0[:n]
+    g = VG.VectorGraph(nbr, (nbr >= 0).float())
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    level, bfs_s = timed(lambda: VG.bfs(g, index.entry))
+    reach = int((level >= 0).sum())
+    (labels, passes), cc_s = timed(lambda: VG.connected_components_passes(g))
+    pr, pr_s = timed(lambda: VG.pagerank(g, iters=GRAPH_PR_ITERS))
+    total = float(pr.sum(dtype=torch.float64))
+    cl, cl_s = timed(lambda: VG.community_labels(g, iters=GRAPH_CL_ITERS))
+    sub = nbr[:GRAPH_SUB]
+    sub = torch.where(sub < GRAPH_SUB, sub, -1)
+    card = VG.community_labels(VG.VectorGraph(sub, (sub >= 0).float()),
+                               iters=GRAPH_CL_ITERS).cpu()
+    host_sub = sub.cpu()
+    host = VG.community_labels(VG.VectorGraph(host_sub,
+                                              (host_sub >= 0).float()),
+                               iters=GRAPH_CL_ITERS)
+    log(f"[graph] VectorGraph of the level-0 adjacency {tuple(nbr.shape)} on "
+        f"{nbr.device}: bfs from the entry {bfs_s:.2f} s, depth "
+        f"{int(level.max())}, reachable {reach} of {n} ({reach / n} vs "
+        f"validate's {frac}); connected_components {passes} passes in "
+        f"{cc_s:.2f} s, {int(torch.unique(labels).numel())} components; "
+        f"pagerank {GRAPH_PR_ITERS} iterations in {pr_s:.2f} s, sum "
+        f"{total:.7f}; community_labels {GRAPH_CL_ITERS} iterations in "
+        f"{cl_s:.2f} s, {int(torch.unique(cl).numel())} labels; on the "
+        f"{GRAPH_SUB}-node induced subgraph card == CPU: "
+        f"{bool(torch.equal(card, host))} on {smi}")
+    if reach / n != frac:
+        fail(f"BFS reaches {reach / n} of the graph, validate_index {frac}")
+    if abs(total - 1.0) > PR_SUM_TOL:
+        fail(f"pagerank sums to {total}")
+    if not torch.equal(card, host):
+        fail("community_labels on the card differ from the CPU run")
+
+
+def _ml_targets(x):
+    """The ML table's targets from ML_LABEL_SEED: a regression target, a
+    binary label (no label noise) and a 10-class label (Gaussian noise on
+    the class scores), and the 10-class label's Bayes-optimal accuracy on
+    this draw (the accuracy of the noiseless argmax)."""
+    n, dim = x.shape
+    rng = np.random.default_rng(ML_LABEL_SEED)
+    w = rng.standard_normal(dim).astype(np.float32) / np.float32(np.sqrt(dim))
+    W = rng.standard_normal((dim, 10)).astype(np.float32) / \
+        np.float32(np.sqrt(dim))
+    s = x @ w
+    y_reg = (s + 0.1 * rng.standard_normal(n)).astype(np.float32)
+    y_bin = (s > np.median(s)).astype(np.int32)
+    scores = x @ W
+    y_mc = np.argmax(scores + rng.standard_normal((n, 10)).astype(np.float32),
+                     axis=1).astype(np.int32)
+    bayes_mc = float((np.argmax(scores, axis=1) == y_mc).mean())
+    return y_reg, y_bin, y_mc, bayes_mc
+
+
+def _ml_cases(x, small, y_reg, y_bin, y_mc):
+    """(label, algorithm, hyperparameters, X, y): every ported algorithm
+    at its JAX defaults, apart from k-means (k 256), GMM (k 64) and PCA
+    (32 components); the SVM's dual solver at its default sample_cap and
+    its random-feature solver at a gamma scaled to the data."""
+    gamma = float(1.0 / (x.shape[1] * x.var()))
+    return [
+        ("kmeans", "kmeans", {"k": 256}, x, None),
+        ("minibatch_kmeans", "minibatch_kmeans", {"k": 256}, x, None),
+        ("linear_regression", "linear_regression", {}, x, y_reg),
+        ("ridge", "ridge", {}, x, y_reg),
+        ("lasso", "lasso", {}, x, y_reg),
+        ("elastic_net", "elastic_net", {}, x, y_reg),
+        ("logistic binary", "logistic_regression", {}, x, y_bin),
+        ("logistic 10-class", "logistic_regression", {}, x, y_mc),
+        ("gmm", "gmm", {"k": 64}, x, None),
+        ("pca", "pca", {"n_components": 32}, x, None),
+        ("pca whiten", "pca", {"n_components": 32, "whiten": True}, x, None),
+        ("naive_bayes", "naive_bayes", {}, x, y_mc),
+        ("svm primal", "svm", {}, x, y_bin),
+        ("svm dual", "svm", {"solver": "dual"}, x, y_bin),
+        ("svm rff", "svm", {"solver": "rff", "gamma": gamma}, x, y_bin),
+        ("knn_classifier", "knn_classifier", {}, x, y_mc),
+        ("knn_regressor", "knn_regressor", {}, x, y_reg),
+        ("anomaly_detection", "anomaly_detection", {}, x, None),
+        ("dbscan", "dbscan", {}, small, None),
+        ("dbscan eps 17", "dbscan", {"eps": 17.0}, small, None),
+        ("hierarchical", "hierarchical", {}, small, None),
+    ]
+
+
+def _f64_inertia(x_dev, centroids):
+    """Sum of squared distances to the nearest centroid, in float64 on the
+    card."""
+    import torch
+    c = centroids.double()
+    c_sq = (c * c).sum(1)
+    total = 0.0
+    for s in range(0, x_dev.shape[0], 1 << 17):
+        xs = x_dev[s:s + (1 << 17)].double()
+        d2 = (xs * xs).sum(1)[:, None] + c_sq[None, :] - 2.0 * (xs @ c.T)
+        total += float(torch.clamp(d2, min=0.0).amin(1).sum())
+    return total
+
+
+def phase_ml(x, qb, smi):
+    """The ML runtime through Client(device="cuda").train / predict /
+    evaluate on config 1's corpus (DBSCAN and agglomerative clustering on
+    its first 10,000 rows): every ported algorithm, each held to a
+    reference computed apart from the code under test, each model
+    persisted and reloaded, and a JAX-format model on the card."""
+    import torch
+    from neurondb_tpu_torch.client import Client
+    from neurondb_tpu_torch.ml import api as ML
+    from neurondb_tpu_torch.ml import registry as MR
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    n, dim = x.shape
+    y_reg, y_bin, y_mc, bayes_mc = _ml_targets(x)
+    small = np.ascontiguousarray(x[:ML_SMALL_ROWS])
+    rng = np.random.default_rng(ML_LABEL_SEED + 1)
+    rows = np.sort(rng.choice(n, ML_PREDICT_ROWS, replace=False))
+    Xp = x[rows]
+    client = Client(device="cuda")
+    models = {}
+    with tempfile.TemporaryDirectory() as root:
+        running = MR.ModelRegistry(root, device="cuda")
+        MR.set_registry(running)
+        try:
+            for label, algo, hp, X, y in _ml_cases(x, small, y_reg, y_bin,
+                                                   y_mc):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                mid = client.train("chip", algo, X, y, hp)
+                train_s = time.perf_counter() - t0
+                rec = MR.get_registry().get(mid)
+                yp = None if y is None else y[rows]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pred = client.predict(mid, Xp)
+                pred_s = time.perf_counter() - t0
+                ev = client.evaluate(mid, Xp, yp) \
+                    if ML._resolve(algo).evaluate is not None else {}
+                # a fresh registry reads the model back from its files
+                MR.set_registry(MR.ModelRegistry(root, device="cuda"))
+                same = np.array_equal(client.predict(mid, Xp), pred)
+                MR.set_registry(running)
+                shown = {k: round(v, 6) for k, v in rec.metrics.items()
+                         if k != "train_seconds"}
+                if algo in ("dbscan", "hierarchical"):
+                    lab = rec.model["labels"]
+                    shown["clusters"] = int(torch.unique(lab[lab >= 0]).numel())
+                    shown["noise"] = int((lab < 0).sum())
+                log(f"[ml] {label}: train {train_s:.2f} s ({X.shape[0]} x "
+                    f"{X.shape[1]}), predict {len(Xp) / pred_s:.0f} rows/s "
+                    f"({len(Xp)} rows), train-time metrics {shown}, "
+                    f"evaluate on the predict rows "
+                    f"{ {k: round(v, 6) for k, v in ev.items()} }; "
+                    f"persisted and reloaded, predicts bit for bit: {same}")
+                if not same:
+                    fail(f"{label}: the reloaded model predicts otherwise")
+                models[label] = (mid, rec.model, rec.metrics)
+            _ml_checks(x, qb, models, y_reg, y_bin, y_mc, bayes_mc, client)
+            _ml_fixture(smi)
+        finally:
+            MR.set_registry(None)
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    log(f"[ml] phase in {time.perf_counter() - t_phase:.1f} s (budget "
+        f"{ML_PHASE_S} s), peak device memory {peak / 2**30:.2f} GiB above "
+        f"the {base_mem / 2**30:.2f} GiB held before, on {smi}")
+
+
+def _ml_checks(x, qb, models, y_reg, y_bin, y_mc, bayes_mc, client):
+    """Each model against a reference computed apart from the code under
+    test: f64 normal equations and covariance on the host, f64 class
+    moments, f64 inertia on the card, kNN votes and weights from
+    FlatIndex's exact neighbours, accuracy bars from the labels' noise."""
+    import torch
+    import neurondb_tpu_torch as nt
+    from neurondb_tpu_torch.ml import gmm as MG
+    n, dim = x.shape
+    # linear and ridge: the f64 normal equations (the JAX package's 1e-8
+    # ridge and the unpenalized intercept)
+    A = np.empty((n, dim + 1))
+    A[:, :dim] = x
+    A[:, dim] = 1.0
+    G = A.T @ A
+    b = A.T @ y_reg.astype(np.float64)
+    eye = np.eye(dim + 1)
+    reg = eye.copy()
+    reg[-1, -1] = 0.0
+    for label, R in (("linear_regression", 0.0), ("ridge", 1.0)):
+        w64 = np.linalg.solve(G + R * reg + 1e-8 * eye, b)
+        m = models[label][1]
+        w = np.concatenate([m["coef"].cpu().numpy(),
+                            [float(m["intercept"])]]).astype(np.float64)
+        err = float(np.linalg.norm(w - w64) / np.linalg.norm(w64))
+        log(f"[ml] {label}: coefficients vs the f64 normal equations, "
+            f"relative error {err:.3e} (bar {LIN_RTOL:.0e})")
+        if err > LIN_RTOL:
+            fail(f"{label} coefficients off the f64 normal equations")
+    # PCA: the f64 covariance's eigenvalues
+    mu = G[:dim, dim] / n
+    cov = (G[:dim, :dim] - n * np.outer(mu, mu)) / (n - 1)
+    ev64 = np.linalg.eigh(cov)[0][::-1][:32]
+    for label in ("pca", "pca whiten"):
+        ev = models[label][1]["explained_variance"].cpu().numpy()
+        err = float(np.max(np.abs(ev - ev64) / ev64))
+        log(f"[ml] {label}: 32 eigenvalues {ev[0]:.4f} .. {ev[-1]:.4f} vs "
+            f"f64 numpy.linalg.eigh, max relative error {err:.3e} (bar "
+            f"{PCA_RTOL:.1e})")
+        if err > PCA_RTOL:
+            fail(f"{label} eigenvalues off the f64 covariance's")
+    del A, G
+    # naive Bayes: f64 class means and variances
+    m = models["naive_bayes"][1]
+    smooth = 1e-9 * float(x.var(axis=0, dtype=np.float64).max())
+    means, var = m["means"].cpu().numpy(), m["variances"].cpu().numpy()
+    err_m = err_v = 0.0
+    for c in range(means.shape[0]):
+        xc = x[y_mc == c].astype(np.float64)
+        mu_c, var_c = xc.mean(0), xc.var(0)
+        err_m = max(err_m, float(np.max(np.abs(means[c] - mu_c)
+                                        / np.maximum(np.abs(mu_c), 1.0))))
+        err_v = max(err_v, float(np.max(np.abs(var[c] - smooth - var_c)
+                                        / var_c)))
+    log(f"[ml] naive_bayes: class means vs f64, max error {err_m:.3e} "
+        f"(relative, or absolute under 1); variances {err_v:.3e} relative "
+        f"(bar {NB_RTOL:.0e})")
+    if max(err_m, err_v) > NB_RTOL:
+        fail("naive Bayes moments off the f64 class moments")
+    # k-means: the f64 inertia of the returned centroids
+    x_dev = torch.from_numpy(x).cuda()
+    for label in ("kmeans", "minibatch_kmeans"):
+        m = models[label][1]
+        want = _f64_inertia(x_dev, m["centroids"])
+        err = abs(float(m["inertia"]) - want) / want
+        log(f"[ml] {label}: inertia {float(m['inertia']):.6g} vs the f64 "
+            f"inertia of its centroids {want:.6g}, relative error "
+            f"{err:.3e} (bar {INERTIA_RTOL:.0e})")
+        if err > INERTIA_RTOL:
+            fail(f"{label} inertia off the f64 inertia of its centroids")
+    # GMM: a finite log-likelihood above its k-means++ start's
+    m = models["gmm"][1]
+    m0, v0, w0 = MG.gmm_init(x_dev, m["means"].shape[0])
+    start = float(torch.logsumexp(MG._log_prob(x_dev, m0, v0, w0), 1).sum())
+    ll = float(m["log_likelihood"])
+    log(f"[ml] gmm: log-likelihood {ll:.6g} after EM, {start:.6g} at its "
+        f"k-means++ start")
+    if not np.isfinite(ll) or ll <= start:
+        fail("GMM log-likelihood not finite or not above its start")
+    del x_dev
+    torch.cuda.empty_cache()
+    # kNN: votes and inverse-distance weights from FlatIndex's neighbours
+    q = qb[:ML_KNN_CHECK]
+    flat = nt.FlatIndex(x, metric="l2", device="cuda")
+    fd, fi = flat.search(q, k=6)
+    del flat
+    torch.cuda.empty_cache()
+    tie = np.abs(fd[:, 4] - fd[:, 5]) <= SH_FLAT_TIE_RTOL * fd[:, 5]
+    votes = np.stack([np.bincount(r, minlength=10) for r in y_mc[fi[:, :5]]])
+    want_cls = votes.argmax(1)
+    wgt = 1.0 / np.maximum(fd[:, :5].astype(np.float64), 1e-6)
+    want_reg = (y_reg[fi[:, :5]] * wgt).sum(1) / wgt.sum(1)
+    got_cls = client.predict(models["knn_classifier"][0], q)
+    got_reg = client.predict(models["knn_regressor"][0], q)
+    bad_cls = (got_cls != want_cls) & ~tie
+    rel = np.abs(got_reg - want_reg) / np.maximum(np.abs(want_reg), 1e-3)
+    bad_reg = (rel > KNN_RTOL) & ~tie
+    log(f"[ml] knn on {ML_KNN_CHECK} rows vs FlatIndex's exact neighbours: "
+        f"classifier {int((got_cls != want_cls).sum())} differ, "
+        f"{int(bad_cls.sum())} away from a 5th/6th distance tie; regressor "
+        f"max relative error {float(rel[~tie].max()):.3e} (bar "
+        f"{KNN_RTOL:.0e}); {int(tie.sum())} rows at a tie")
+    if bad_cls.any() or bad_reg.any():
+        fail("kNN predictions differ from FlatIndex's neighbours")
+    # accuracy bars: Bayes-optimal accuracy of the labels' noise, less a
+    # margin (the binary label is noiseless: Bayes-optimal 1.0); the
+    # accuracy is counted here from client.predict and the seeded labels,
+    # and the port's own train-time metric must agree with it
+    for label, y, bayes in (("logistic binary", y_bin, 1.0),
+                            ("logistic 10-class", y_mc, bayes_mc),
+                            ("svm primal", y_bin, 1.0),
+                            ("svm dual", y_bin, 1.0),
+                            ("svm rff", y_bin, 1.0)):
+        mid, _, metrics = models[label]
+        acc = float(np.mean(client.predict(mid, x) == y))
+        own = metrics["accuracy"]
+        bar = bayes - ACC_MARGIN[label]
+        log(f"[ml] {label}: accuracy {acc:.4f} on the {n}-row table from "
+            f"client.predict and the labels (the port's own train-time "
+            f"metric {own:.4f}), Bayes-optimal {bayes:.4f}, bar {bar:.4f} "
+            f"(margin {ACC_MARGIN[label]})")
+        if acc < bar:
+            fail(f"{label} accuracy {acc} under its bar {bar}")
+        if abs(own - acc) > ACC_AGREE:
+            fail(f"{label}: the port's accuracy metric {own} is not the "
+                 f"accuracy of its predictions {acc}")
+
+
+def _ml_fixture(smi):
+    """Two models the JAX registry persisted on the CPU
+    (tests/data/jax_registry: an RBF dual SVM and a whitened PCA) load on
+    the card and predict as the JAX package did on the CPU."""
+    from neurondb_tpu_torch.ml import api as ML
+    from neurondb_tpu_torch.ml import neighbors as MN
+    from neurondb_tpu_torch.ml import registry as MR
+    import torch
+    root = os.path.join(ROOT, "tests", "data", "jax_registry")
+    reg = MR.ModelRegistry(root, device="cuda")
+    MR.set_registry(reg)
+    with np.load(os.path.join(root, "expected.npz")) as e:
+        X, want_svm, want_pca = e["X"], e["svm"], e["pca"]
+    svm = ML.predict(1, X, device="cuda")
+    pca = ML.predict(2, X, device="cuda")
+    dec = MN.svm_kernel_decision(reg.get(1).model,
+                                 torch.from_numpy(X).cuda())
+    top2 = torch.topk(dec, 2, dim=1).values
+    gap = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+    off = (svm != want_svm) & (gap > FIXTURE_TIE)
+    err = float(np.max(np.abs(pca - want_pca)))
+    log(f"[ml] JAX-format models (tests/data/jax_registry) on the card: svm "
+        f"{int((svm != want_svm).sum())} of {len(X)} labels differ from the "
+        f"JAX CPU run ({int(off.sum())} away from a decision tie under "
+        f"{FIXTURE_TIE}), whitened pca max |diff| {err:.3e} (bar "
+        f"{FIXTURE_TOL}) on {smi}")
+    if off.any() or err > FIXTURE_TOL:
+        fail("a JAX-format model predicts otherwise on the card")
+
+
 def main(argv):
     import torch
     kernels_only = "--kernels-only" in argv
@@ -3706,8 +4360,10 @@ def main(argv):
         probe_launches = {"exact": phase_probe_route(index, qb, chosen, gt,
                                                      exact)}
         phase_save_load(index, qb, chosen)
+        _validate_ivf_checks(index, smi)
         del index
         torch.cuda.empty_cache()
+        phase_store(x, qb, smi)
         hnsw_launches, hnsw_mode = phase_hnsw(x, qb, gt, exact, smi)
         flat_launches[hnsw_mode] += hnsw_launches
         pq_launches = phase_ivfpq(x)
@@ -3715,6 +4371,7 @@ def main(argv):
         # the hybrid ANN takes the default selection (packed at 200k rows)
         from neurondb_tpu_torch import get_config
         flat_launches[get_config().ivf_select] += phase_hybrid(x, smi)
+        phase_ml(x, qb, smi)
         n_probe, n_pq, n_grouped, sh_mode = phase_sharded(x, qb, exact, smi)
         probe_launches["exact"] += n_probe
         pq_launches["exact"] += n_pq

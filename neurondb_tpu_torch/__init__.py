@@ -2,28 +2,40 @@
 
 A second package beside ``neurondb_tpu`` (the JAX reference, which it
 never imports). It keeps the JAX package's module names so each part has
-a findable counterpart, and holds the flat, quantized flat, IVFFlat,
-IVF-PQ and HNSW indexes, BM25 and hybrid search, and the cross-encoder
-rerank and text-embedding path:
+a findable counterpart, and holds the vector store, the flat, quantized
+flat, IVFFlat, IVF-PQ, HNSW and specialty indexes, BM25 and hybrid
+search, the cross-encoder rerank and text-embedding path, and the ML
+runtime's first families:
 
 - ``ops``: every distance metric, top-k (ties go to the lowest index, as
-  ``lax.top_k``'s), and ``ops.kernels`` with the hand-written CUDA
+  ``lax.top_k``'s), the vector math ops (``vector_ops``: elementwise,
+  statistics, lexicographic comparison, the FNV-1a content hash, batch
+  aggregates), and ``ops.kernels`` with the hand-written CUDA
   kernels of the list-grouped IVF scan, the round-1 probe scan, the
   IVF-PQ scan and flash attention (``csrc/``), built for ``sm_90a`` at
   first use;
-- ``types``: the ten quantization formats and padded sparse vectors;
-- ``ml``: k-means (single and batched over subspaces), recall, the
+- ``types``: the ten quantization formats, padded sparse vectors,
+  ``VectorGraph`` (BFS, shortest paths, DFS, PageRank, communities,
+  components) and the exotic ``RetrievableText`` / ``VectorPacked``;
+- ``store``: ``VectorStore``, a device table with ids and tombstones;
+- ``ml``: the ML runtime (``api``: ``train`` / ``predict`` /
+  ``evaluate`` / ``deploy`` over the ``registry``; ``algorithms``:
+  k-means and mini-batch k-means, linear / ridge / lasso / elastic net /
+  logistic regression, GMM, PCA, DBSCAN, agglomerative clustering, kNN,
+  naive Bayes, SVM and anomaly detection), the retrieval metrics, the
   WordPiece tokenizer, the BERT and pre-LN encoders with their
   embedders and cross-encoders, the ViT image encoder, the byte-level
   BPE tokenizer and GPT-2 decode (KV cache, W8A8, int8 KV, sampling);
 - ``index``: ``FlatIndex``, ``QuantizedFlatIndex``, ``IVFFlatIndex``,
-  ``PQIndex``, ``IVFPQIndex`` and ``HNSWIndex``;
+  ``PQIndex``, ``IVFPQIndex``, ``HNSWIndex``, the specialty
+  ``RerankReadyIndex`` and ``ConsistentIndex``, ``validate_index`` and
+  the tuning heuristics;
 - ``search``: BM25, hybrid fusion, sparse retrieval, the query planner,
   the rerankers and the RAG pipeline;
 - ``service``: the LLM router (local, OpenAI and HF providers, cache,
   rate limit, fail-open, async jobs) and the embedding service;
 - ``client``: ``Collection`` and ``Client`` (with its LLM, embedding
-  and RAG services);
+  and RAG services and the ML runtime);
 - ``parallel`` (imported on its own, not by this module): a mesh of
   torch devices, the sharded flat, IVF, HNSW and IVF-PQ indexes, the
   two-level (DCN x ICI) IVF with its streaming build, and sharded
@@ -56,6 +68,9 @@ from neurondb_tpu_torch.index.hnsw import HNSWIndex
 from neurondb_tpu_torch.index.ivf import IVFFlatIndex
 from neurondb_tpu_torch.index.ivfpq import IVFPQIndex
 from neurondb_tpu_torch.index.pq import PQIndex
+from neurondb_tpu_torch.index.specialty import (ConsistentIndex,
+                                                RerankReadyIndex)
+from neurondb_tpu_torch.store import VectorStore
 
 __all__ = [
     "__version__",
@@ -84,4 +99,7 @@ __all__ = [
     "PQIndex",
     "IVFPQIndex",
     "HNSWIndex",
+    "RerankReadyIndex",
+    "ConsistentIndex",
+    "VectorStore",
 ]

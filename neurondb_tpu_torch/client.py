@@ -7,9 +7,10 @@ the port's five index kinds (flat, ivfflat, hnsw, pq, ivfpq); it serves
 ANN, hybrid search and stats. ``Client`` manages collections and serves
 the LLM router (``llm``: ``service.llm.router_from_config``), the
 embedding service (``embeddings``) and RAG pipelines (``rag()``), their
-models on the client's ``device``. Its ML runtime (``train``,
-``predict``, ``evaluate``) is not ported yet and raises
-``NotImplementedError`` naming ROADMAP queue 1 item 15.
+models on the client's ``device``, and the ML runtime (``train``,
+``predict``, ``evaluate`` through ``ml.api`` on the client's ``device``;
+the algorithm families not ported yet raise ``NotImplementedError``
+naming ROADMAP queue 1 item 15).
 """
 
 from __future__ import annotations
@@ -170,8 +171,7 @@ class Collection:
 
 class Client:
     """Top-level handle: collections, the LLM router, the embedding
-    service and RAG pipelines on ``device``; the ML runtime waits for a
-    later slice of the port."""
+    service, RAG pipelines and the ML runtime on ``device``."""
 
     def __init__(self, device=None):
         self.device = resolve_device(device)
@@ -196,16 +196,20 @@ class Client:
     def list_collections(self) -> List[str]:
         return sorted(self._collections)
 
-    # ---- ML: not ported yet ----
+    # ---- ML ----
     def train(self, project: str, algorithm: str, X, y=None,
               hyperparams: Optional[Dict] = None) -> int:
-        raise NotImplementedError(_NOT_PORTED)
+        from neurondb_tpu_torch.ml import api as ML
+        return ML.train(project, algorithm, X, y, hyperparams,
+                        device=self.device)
 
     def predict(self, model_id: int, X) -> np.ndarray:
-        raise NotImplementedError(_NOT_PORTED)
+        from neurondb_tpu_torch.ml import api as ML
+        return ML.predict(model_id, X, device=self.device)
 
     def evaluate(self, model_id: int, X, y=None) -> Dict:
-        raise NotImplementedError(_NOT_PORTED)
+        from neurondb_tpu_torch.ml import api as ML
+        return ML.evaluate(model_id, X, y, device=self.device)
 
     # ---- services ----
     @property
@@ -227,5 +231,3 @@ class Client:
         return RAGPipeline(embed=lambda texts: self.embeddings.embed_batch(
             texts), metric=metric, chunk_size=chunk_size, device=self.device)
 
-
-_NOT_PORTED = "the ML runtime is not ported yet (ROADMAP queue 1 item 15)"

@@ -1,7 +1,9 @@
 """K-means — Lloyd's iterations with k-means++ seeding.
 
 Counterpart of ``neurondb_tpu/ml/kmeans.py`` (``_assign``, ``_update``,
-``kmeans_plusplus_init``, ``kmeans_fit``, ``kmeans_predict``). A Python
+``kmeans_plusplus_init``, ``kmeans_fit``, ``kmeans_predict``,
+``minibatch_kmeans_fit``, ``silhouette_score``,
+``davies_bouldin_index``). A Python
 loop takes the place of ``lax.while_loop`` with the same stopping rule
 (at most ``max_iter`` iterations while the mean centroid shift is at
 least ``tol``) and the same empty-cluster rule (an empty cluster keeps
@@ -14,8 +16,12 @@ over PQ subspaces as one batch dimension: all subspaces seed and iterate
 together, each stopping at its own convergence; ``kmeans_fit`` is its
 batch of one.
 
-Random streams come from a ``torch.Generator`` seeded with ``seed``; they
-differ from ``jax.random``'s, so tests hold the fit to its inertia.
+Random streams come from a ``torch.Generator`` on the data's device
+seeded with ``seed`` (the seeding and the mini-batch draws); they differ
+from ``jax.random``'s, so tests hold the fits to their inertia.
+``silhouette_score`` and ``davies_bouldin_index`` run over the rows in
+chunks (the JAX package materializes ``[N, k]`` and ``[N, D]``: 4 GB at
+1M x 1,024); their sums run in another order.
 """
 
 from __future__ import annotations
@@ -175,3 +181,80 @@ def kmeans_predict(centroids: torch.Tensor, x: torch.Tensor,
     for s in range(0, x.shape[0], chunk):
         labels[s:s + chunk] = _assign(x[s:s + chunk], c)[0]
     return labels
+
+
+def minibatch_kmeans_fit(x: torch.Tensor, k: int, *, batch: int = 1024,
+                         iters: int = 100, seed: int = 0) -> KMeansState:
+    """Mini-batch k-means (ml_minibatch_kmeans.c parity): per-batch
+    assignment + per-cluster learning-rate update (Sculley 2010). The
+    batches are drawn with replacement from a generator on x's device."""
+    x = x.float()
+    n = x.shape[0]
+    gen = torch.Generator(device=x.device)
+    gen.manual_seed(int(seed))
+    c = kmeans_plusplus_init(x, k, gen)
+    counts = torch.zeros(k, dtype=torch.float32, device=x.device)
+    for _ in range(iters):
+        idx = torch.randint(0, n, (batch,), generator=gen, device=x.device)
+        xb = x[idx]
+        labels, _ = _assign(xb, c)
+        lab = labels.long()
+        bc = torch.bincount(lab, minlength=k).float()
+        counts = counts + bc
+        lr = bc / torch.clamp(counts, min=1.0)
+        sums = torch.zeros_like(c).index_add_(0, lab, xb)
+        bmean = sums / torch.clamp(bc[:, None], min=1.0)
+        c = torch.where(bc[:, None] > 0,
+                        c * (1.0 - lr[:, None]) + bmean * lr[:, None], c)
+    _, d2 = _assign_chunked(x[None], c[None], (x * x).sum(1)[None])
+    return KMeansState(c, float(d2.sum()), int(iters), 0.0)
+
+
+SCORE_ROWS = 131072     # rows a chunk in the cluster-quality scores
+
+
+def silhouette_score(x: torch.Tensor, labels: torch.Tensor, k: int,
+                     sample: int = 2048, seed: int = 0) -> torch.Tensor:
+    """Approximate silhouette via centroid distances (fast evaluate path,
+    matching evaluate_kmeans_by_model_id's cluster-quality metrics).
+    ``sample`` and ``seed`` are accepted for parity; every row counts,
+    as in the JAX package."""
+    x = x.float()
+    labels = labels.long()
+    c = _update(x, labels, k, torch.zeros((k, x.shape[1]), device=x.device))
+    c_sq = (c * c).sum(1)
+    total = torch.zeros((), dtype=torch.float64, device=x.device)
+    for s in range(0, x.shape[0], SCORE_ROWS):
+        xc, lc = x[s:s + SCORE_ROWS], labels[s:s + SCORE_ROWS]
+        d = torch.sqrt(torch.clamp((xc * xc).sum(1)[:, None] + c_sq[None, :]
+                                   - 2.0 * (xc @ c.T), min=0.0))
+        own = d.gather(1, lc[:, None])[:, 0]
+        other = d.scatter(1, lc[:, None], float("inf")).amin(1)
+        sc = (other - own) / torch.clamp(torch.maximum(own, other), min=1e-30)
+        total += sc.sum(dtype=torch.float64)
+    return (total / x.shape[0]).float()
+
+
+def davies_bouldin_index(x: torch.Tensor, labels: torch.Tensor,
+                         k: int) -> torch.Tensor:
+    """Davies-Bouldin cluster-quality index (src/ml/ml_davies_bouldin.c)."""
+    x = x.float()
+    labels = labels.long()
+    c = _update(x, labels, k, torch.zeros((k, x.shape[1]), device=x.device))
+    counts = torch.bincount(labels, minlength=k).float()
+    # mean intra-cluster distance to centroid
+    intra = torch.zeros(k, dtype=torch.float32, device=x.device)
+    for s in range(0, x.shape[0], SCORE_ROWS):
+        lc = labels[s:s + SCORE_ROWS]
+        intra.index_add_(0, lc, torch.linalg.vector_norm(
+            x[s:s + SCORE_ROWS] - c[lc], dim=1))
+    intra = intra / torch.clamp(counts, min=1.0)
+    cd = torch.linalg.vector_norm(c[:, None, :] - c[None, :, :], dim=-1)
+    ratio = (intra[:, None] + intra[None, :]) / torch.clamp(cd, min=1e-30)
+    eye = torch.eye(k, dtype=torch.bool, device=x.device)
+    ratio = torch.where(eye, -float("inf"), ratio)
+    valid = counts > 0
+    r = torch.where(valid[:, None] & valid[None, :], ratio, -float("inf"))
+    per = r.amax(1)
+    per = torch.where(valid & torch.isfinite(per), per, 0.0)
+    return per.sum() / torch.clamp(valid.sum().float(), min=1.0)

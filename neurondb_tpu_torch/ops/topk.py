@@ -21,6 +21,7 @@ NEG_FILL = float(torch.finfo(torch.float32).max)
 
 
 ROW_SORT_MAX = 4096   # rows this wide or narrower: one stable sort
+GROUP = 128           # columns a group in _grouped_positions
 
 
 def topk_smallest(scores: torch.Tensor, k: int, *,
@@ -30,12 +31,12 @@ def topk_smallest(scores: torch.Tensor, k: int, *,
     the lowest index first among equal values, as ``lax.top_k(-scores)``
     gives them (-0.0 counts as equal to 0.0 here, where ``lax.top_k``
     puts it first). Rows of up to ``ROW_SORT_MAX`` take one stable sort;
-    wider rows ``_smallest_positions``. ``recall_target`` is accepted for
+    wider rows ``_wide_positions``. ``recall_target`` is accepted for
     parity and served exactly."""
     if scores.shape[-1] <= ROW_SORT_MAX:
         v, pos = torch.sort(scores, dim=-1, stable=True)
         return v[..., :k], pos[..., :k]
-    pos = _smallest_positions(scores.float() + 0.0, k)   # -0.0 -> 0.0
+    pos = _wide_positions(scores.float(), k)
     return torch.gather(scores, -1, pos), pos
 
 
@@ -46,8 +47,46 @@ def topk_largest(scores: torch.Tensor, k: int
     if scores.shape[-1] <= ROW_SORT_MAX:
         v, pos = torch.sort(scores, dim=-1, descending=True, stable=True)
         return v[..., :k], pos[..., :k]
-    pos = _smallest_positions(0.0 - scores.float(), k)   # never -0.0
+    pos = _wide_positions(0.0 - scores.float(), k)
     return torch.gather(scores, -1, pos), pos
+
+
+def _wide_positions(s: torch.Tensor, k: int) -> torch.Tensor:
+    """Positions of the k smallest of f32 ``s`` in (value, index) order:
+    ``_grouped_positions`` where the k groups it keeps are at most half
+    the row, else ``_smallest_positions``."""
+    k = min(k, s.shape[-1])
+    if 2 * k * GROUP <= s.shape[-1]:
+        return _grouped_positions(s, k)
+    return _smallest_positions(s + 0.0, k)                # -0.0 -> 0.0
+
+
+def _grouped_positions(s: torch.Tensor, k: int) -> torch.Tensor:
+    """``_wide_positions`` with no selection over the whole row: its
+    groups of ``GROUP`` columns are ranked by (minimum, group index), and the k
+    smallest (value, index) entries lie in the first k groups (a group
+    outside them has k groups before it, each holding an entry before all
+    of its own). Those groups' columns, in index order, then take a
+    stable selection. A NaN counts as +inf in a group's minimum (it sorts
+    after +inf in the selection), so the result is a stable sort's unless
+    the row's k smallest reach +inf beside a group holding only NaNs."""
+    n = s.shape[-1]
+    G = n // GROUP
+    inf = float("inf")
+    mins = torch.nan_to_num(s[..., :G * GROUP].unflatten(-1, (G, GROUP)),
+                            nan=inf, posinf=inf, neginf=-inf).amin(-1)
+    if G * GROUP < n:
+        tail = torch.nan_to_num(s[..., G * GROUP:], nan=inf, posinf=inf,
+                                neginf=-inf).amin(-1, keepdim=True)
+        mins = torch.cat([mins, tail], dim=-1)
+    _, gsel = topk_smallest(mins, k)
+    gsel = torch.sort(gsel, dim=-1).values                # index order
+    cpos = (gsel[..., None] * GROUP
+            + torch.arange(GROUP, device=s.device)).flatten(-2)
+    cand = torch.gather(s, -1, cpos.clamp(max=n - 1))
+    # past the row's end: NaN, which sorts after every entry of the row
+    _, p = topk_smallest(cand.masked_fill(cpos >= n, float("nan")), k)
+    return torch.gather(cpos, -1, p)
 
 
 def _smallest_positions(s: torch.Tensor, k: int) -> torch.Tensor:

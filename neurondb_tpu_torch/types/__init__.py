@@ -1,1 +1,2 @@
-"""Vector formats: quantized codes and padded sparse batches."""
+"""Value types: quantized codes, padded sparse batches, the vector graph
+(``graph.VectorGraph``) and the exotic ``rtext`` / ``vectorp`` types."""

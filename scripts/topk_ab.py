@@ -6,11 +6,12 @@
 ``lax.top_k`` returns the lowest index first among equal values;
 ``torch.topk`` promises no order among ties. ``ops.topk.topk_smallest``
 keeps the rule: one stable sort for rows up to ``ROW_SORT_MAX`` columns,
-else a ``torch.topk`` for the k-th value and a second over the indices
-equal to it. This script holds it to a stable sort on integer rows full
-of ties, then times it in alternating turns (CUDA events, medians of 7
-turns of 20 calls) beside plain ``torch.topk`` and a bare stable
-``torch.sort`` at the port's shapes: the IVF coarse top-k [16,384, 1,024]
+else one pass over 128-column group minima where the k groups kept are
+at most half the row, else a ``torch.topk`` for the k-th value and a
+second over the indices equal to it. This script holds it to a stable
+sort on integer rows full of ties, then times it in alternating turns
+(CUDA events, medians of 7 turns of 20 calls) beside plain
+``torch.topk`` and a bare stable ``torch.sort`` at the port's shapes: the IVF coarse top-k [16,384, 1,024]
 at n 4 and 16, one quantized-flat scan chunk [1,024, 65,536] at k 80,
 and the hybrid fusion's text top-C [512, 200,000] at k 100.
 

@@ -198,13 +198,18 @@ def test_client_delete_last_docs_clears_bm25(rng):
 
 
 def test_client_services_name_their_roadmap_item():
-    """The ML runtime still raises naming its item; the LLM router, the
-    embedding service and RAG now serve (on the client's device)."""
+    """The ML families not ported yet raise naming their item; the ML
+    runtime's ported ones, the LLM router, the embedding service and RAG
+    serve (on the client's device)."""
     c = Client(device="cpu")
-    for call in (lambda: c.train("p", "linear", None),
-                 lambda: c.predict(1, None), lambda: c.evaluate(1, None)):
+    X = np.random.default_rng(0).standard_normal((20, 2)).astype(np.float32)
+    y = X @ np.array([1.0, -2.0], np.float32) + 3.0
+    for algo in ("random_forest", "xgboost", "mlp"):
         with pytest.raises(NotImplementedError, match="item 15"):
-            call()
+            c.train("p", algo, X, y)
+    mid = c.train("p", "linreg", X, y)
+    np.testing.assert_allclose(c.predict(mid, X[:3]), y[:3], atol=1e-3)
+    assert c.evaluate(mid, X, y)["r2"] > 0.999
     jc = JClient()
     assert type(c.llm).__name__ == type(jc.llm).__name__ == "LLMRouter"
     assert c.llm.complete("one. two.") == jc.llm.complete("one. two.")

@@ -643,7 +643,8 @@ def test_hnsw_bulk_build_on_card_runs_grouped_kernel(dev, monkeypatch):
 # ---- the quantized-flat and BM25 / hybrid slice on the card ----
 
 @pytest.mark.parametrize("shape,k", [((64, 5000), 10), ((16384, 1024), 16),
-                                     ((8, 3000), 700)])
+                                     ((8, 3000), 700), ((4096, 65536), 5),
+                                     ((8, 70001), 300)])
 def test_topk_ties_on_card_follow_a_stable_sort(dev, shape, k):
     from neurondb_tpu_torch.ops.topk import topk_largest, topk_smallest
     gen = torch.Generator(device="cpu").manual_seed(3)
@@ -656,7 +657,8 @@ def test_topk_ties_on_card_follow_a_stable_sort(dev, shape, k):
     assert torch.equal(i, si[:, :k]) and torch.equal(v, -sv[:, :k])
 
 
-@pytest.mark.parametrize("n", [300, 5000])      # the sort and two-pass ways
+# the sort, two-pass and grouped ways
+@pytest.mark.parametrize("n", [300, 5000, 20000])
 def test_signed_zeros_on_card_match_cpu(dev, n):
     """-0.0 and 0.0 are one value on the card as on the CPU (index
     order among them), in both selections."""

@@ -199,7 +199,8 @@ def test_topk_ties_go_to_the_lowest_index(rng, k):
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
 
 
-@pytest.mark.parametrize("n", [300, 5000])      # the sort and two-pass ways
+# the sort, two-pass and grouped ways
+@pytest.mark.parametrize("n", [300, 5000, 20000])
 def test_signed_zeros_are_one_value(n):
     """A recorded divergence: -0.0 and 0.0 tie (index order), where
     lax.top_k orders -0.0 first."""

@@ -483,3 +483,36 @@ def test_gpt_int8_matmul_pads_for_int_mm(monkeypatch):
         assert torch.equal(got, gpt.int8_matmul_plain(xq, wq))
         seen.clear()
         assert torch.equal(gpt.int8_matmul(xq, wq), got) and seen == []
+
+
+def test_store_and_ml_slice_imports_without_jax():
+    """The store, the specialty indexes, validate, tuning, vector ops, the
+    graph and exotic types and the ML runtime load where jax and the JAX
+    package cannot be imported, and load neither; the package exports the
+    JAX ``__init__``'s store and specialty names, and the API registers
+    its algorithms without them."""
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'neurondb_tpu'):\n"
+        "            raise ImportError(name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import neurondb_tpu_torch as nt\n"
+        "from neurondb_tpu_torch import store\n"
+        "from neurondb_tpu_torch.index import specialty, tuning, validate\n"
+        "from neurondb_tpu_torch.ops import vector_ops\n"
+        "from neurondb_tpu_torch.types import exotic, graph\n"
+        "from neurondb_tpu_torch.ml import (algorithms, api, cluster_extra,\n"
+        "                                   gmm, linear, metrics, neighbors,\n"
+        "                                   pca, registry)\n"
+        "names = ['VectorStore', 'RerankReadyIndex', 'ConsistentIndex']\n"
+        "assert all(n in nt.__all__ and hasattr(nt, n) for n in names)\n"
+        "assert len(api.list_algorithms()) == 16\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'neurondb_tpu')))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
