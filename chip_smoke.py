@@ -287,7 +287,7 @@ PQ_BATCH, PQ_NQ = 8192, 1024
 PQ_SWEEP = ((8, 8), (8, 16), (16, 16), (16, 24))
 SAVE_ROWS = 100_000       # the IVF-PQ save/load round trip's index
 KERNELS = ("ivf_scan_grouped", "ivf_scan_grouped_f32", "ivfpq_scan",
-           "flash_attention", "ivf_probe_scan")
+           "flash_attention", "ivf_probe_scan", "ml_recurrence")
 # flash kernel vs plain: f32 sums in another order; with bf16 products a
 # p within f32 noise of a rounding boundary may round one bf16 step
 # (2^-8) apart, moving an output by up to 2^-8 * (p / l) * |v|
@@ -324,6 +324,10 @@ SOURCES = {
                         "neurondb_tpu/ops/pallas/flash_attention.py:68"),
     "ivf_probe_scan": ("neurondb_tpu_torch/csrc/ivf_probe_scan.cu",
                        "neurondb_tpu/ops/pallas/ivf_scan.py:36"),
+    # no TPU kernel: the lax.scan loops the kernel replaces
+    "ml_recurrence": ("neurondb_tpu_torch/csrc/ml_recurrence.cu", {
+        "q_learning": "neurondb_tpu/ml/rl.py:33",
+        "holt_winters": "neurondb_tpu/ml/timeseries.py:62"}),
 }
 # the probe kernel's ragged layout: list lengths around its 512-row segment
 PROBE_LENS = (0, 3, 31, 511, 512, 513, 1024, 1025, 2500)
@@ -460,6 +464,44 @@ ACC_MARGIN = {"logistic binary": 0.02, "logistic 10-class": 0.12,
 ACC_AGREE = 1e-6
 FIXTURE_TIE = 1e-4
 FIXTURE_TOL = 1e-4
+# the families ported last (trees, boosting, time series, ALS, the MLP,
+# Q-learning, GCN, LDA, drift, automl, mlops): their own time budget
+ML2_PHASE_S = 150
+# rows each tree family trains on (config 1's 1M corpus unless cut)
+TREE_ROWS = {"decision_tree": 1_000_000, "random_forest": 1_000_000,
+             "gradient_boosting": 1_000_000, "xgboost": 1_000_000,
+             "lightgbm": 250_000, "catboost": 1_000_000}
+TREE_PLAIN_ROWS = 100_000   # the first tree on the CPU and the card
+# the chosen split's f64 gain below the best f64 gain of its root
+TREE_GAIN_RTOL = 1e-5
+TS_POINTS = 1_051_200       # two years of minute readings
+TS_SEASON = 12
+HW_CHECK_STEPS = 20_000     # the kernel against the plain loop
+TS_AR_RTOL = 1e-3           # AR(4) / ARIMA coefficients vs f64 least squares
+HW_RTOL = 1e-4              # fitted values vs the f64 recurrence / max |y|
+ML1M = dict(users=6040, items=3706, ratings=1_000_209, rank=16,
+            min_per_user=20)                 # GroupLens ML-1M README
+ALS_HOLDOUT = 0.05
+ALS_RTOL = 1e-4             # last half-step rows' f64 normal-equation residual
+MLP_CHECK_STEPS = 5
+MLP_RTOL = 1e-4             # Adam steps vs an f64 recomputation
+Q_SIDE = 32                 # gridworld 32 x 32, goal at the far corner
+Q_TRANSITIONS = 1_000_000
+Q_CHECK = 100_000           # the kernel against the plain loop, 1 epoch
+GCN_TRAIN_FRAC = 0.1
+GCN_PROP_ROWS = 100_000     # rows of the f64 scipy.sparse reference
+GCN_PROP_RTOL = 1e-5
+LDA_SUM_TOL = 1e-5
+DRIFT_ROWS = 500_000
+DRIFT_SHIFTED = 8           # features shifted by +0.5 in the live rows
+DRIFT_CHECK = 16            # features held to f64 numpy / scipy
+PSI_ATOL = 1e-4
+AUTOML_ROWS = 100_000
+AUTOML_TOL = 1e-3           # leaderboard score vs the trainers called directly
+SMEM_ROUND_TRIP_NS = 15     # ~30 cycles at 1.98 GHz: the recurrence's step
+HNSW_LEVEL0 = None          # the HNSW phase's 1M x 32 level-0 graph (host)
+ML2_OWN_S = {}              # each family's own train + predict seconds
+ML2_PEAK = [0]              # the largest allocation peak seen before a reset
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -475,8 +517,10 @@ def _zero_launches():
     from neurondb_tpu_torch.ops.kernels import ivf_scan as PS
     from neurondb_tpu_torch.ops.kernels import ivf_scan_grouped as G
     from neurondb_tpu_torch.ops.kernels import ivfpq_scan as PQS
+    from neurondb_tpu_torch.ops.kernels import ml_recurrence as MREC
     G.LAUNCHES = PQS.LAUNCHES = PS.LAUNCHES = 0
     FA.LAUNCHES = dict.fromkeys(FA.LAUNCHES, 0)
+    MREC.LAUNCHES = dict.fromkeys(MREC.LAUNCHES, 0)
 
 
 def _smi():
@@ -4018,6 +4062,9 @@ def _hnsw_validate_and_graph(index, smi):
 
     level, bfs_s = timed(lambda: VG.bfs(g, index.entry))
     reach = int((level >= 0).sum())
+    _hnsw_unreached_self_search(index, level, smi)
+    global HNSW_LEVEL0
+    HNSW_LEVEL0 = nbr.cpu().numpy()          # the ML phase's GCN graph
     (labels, passes), cc_s = timed(lambda: VG.connected_components_passes(g))
     pr, pr_s = timed(lambda: VG.pagerank(g, iters=GRAPH_PR_ITERS))
     total = float(pr.sum(dtype=torch.float64))
@@ -4173,13 +4220,19 @@ def phase_ml(x, qb, smi):
                     fail(f"{label}: the reloaded model predicts otherwise")
                 models[label] = (mid, rec.model, rec.metrics)
             _ml_checks(x, qb, models, y_reg, y_bin, y_mc, bayes_mc, client)
-            _ml_fixture(smi)
+            rec_stats, ml2_top = phase_ml2(x, rows, client, root, y_reg,
+                                           y_bin, y_mc, bayes_mc, smi)
+            _ml_fixture(smi)          # these two set the fixtures' registry
+            _ml2_fixture(smi)
         finally:
             MR.set_registry(None)
-    peak = torch.cuda.max_memory_allocated() - base_mem
+    # phase_ml2 resets the peak per section: the largest of its peaks
+    peak = max(torch.cuda.max_memory_allocated(), ml2_top) - base_mem
     log(f"[ml] phase in {time.perf_counter() - t_phase:.1f} s (budget "
-        f"{ML_PHASE_S} s), peak device memory {peak / 2**30:.2f} GiB above "
-        f"the {base_mem / 2**30:.2f} GiB held before, on {smi}")
+        f"{ML_PHASE_S} s for the first families, {ML2_PHASE_S} s for the "
+        f"rest), peak device memory {peak / 2**30:.2f} GiB above the "
+        f"{base_mem / 2**30:.2f} GiB held before, on {smi}")
+    return rec_stats
 
 
 def _ml_checks(x, qb, models, y_reg, y_bin, y_mc, bayes_mc, client):
@@ -4340,6 +4393,1019 @@ def _ml_fixture(smi):
         fail("a JAX-format model predicts otherwise on the card")
 
 
+def _hnsw_unreached_self_search(index, level, smi):
+    """Each node the BFS from the entry does not reach, searched with its
+    own vector: does it return itself first?"""
+    rows = np.flatnonzero((level < 0).cpu().numpy())
+    if not len(rows):
+        log(f"[hnsw] every node has a level-0 path from the entry")
+        return
+    q = index._vecs[rows].float().cpu().numpy()
+    _, ids = index.search(q, k=1)
+    own = index._ids_np[rows]
+    hit = ids[:, 0] == own
+    log(f"[hnsw] {len(rows)} nodes without a level-0 path from the entry "
+        f"(rows {rows[:12].tolist()}); searched with their own vectors, "
+        f"{int(hit.sum())} of {len(rows)} return themselves first "
+        f"(default ef) on {smi}")
+
+
+# ---- ML families ported last: trees, boosting, time series, ALS, MLP,
+# Q-learning, GCN, LDA, drift, automl, mlops ----
+
+def _f64_hist(Xb, cols):
+    """[F, 64, C] f64 sums of cols [N, C] per (feature, bin) on the card,
+    16 features an index_add_."""
+    import torch
+    N, F = Xb.shape
+    C = cols.shape[1]
+    out = torch.zeros((F * 64, C), dtype=torch.float64, device=Xb.device)
+    for f0 in range(0, F, 16):
+        f1 = min(F, f0 + 16)
+        idx = Xb[:, f0:f1].long() + torch.arange(
+            f0, f1, device=Xb.device)[None, :] * 64
+        out.index_add_(0, idx.reshape(-1),
+                       cols[:, None, :].expand(N, f1 - f0, C).reshape(-1, C))
+    return out.view(F, 64, C)
+
+
+def _var_gains64(Xb, w, Y, min_leaf):
+    """grow_tree's root gains in f64: weighted variance reduction."""
+    import torch
+    h = _f64_hist(Xb, torch.cat([w[:, None], Y * w[:, None]], 1).double())
+    c = torch.cumsum(h, 1)
+    cnt, s = c[..., 0], c[..., 1:]
+    tc, ts = cnt[:, -1:], s[:, -1:, :]
+    gain = ((s * s).sum(-1) / cnt.clamp(min=1e-9)
+            + ((ts - s) ** 2).sum(-1) / (tc - cnt).clamp(min=1e-9)
+            - (ts * ts).sum(-1) / tc.clamp(min=1e-9))
+    ok = (cnt >= min_leaf) & (tc - cnt >= min_leaf)
+    return torch.where(ok, gain, -torch.inf)
+
+
+def _gh_gains64(Xb, g, h, l2, mcw=1.0):
+    """The XGBoost gain (gamma 0) of every root split in f64."""
+    import torch
+    c = torch.cumsum(_f64_hist(Xb, torch.stack([g, h], 1).double()), 1)
+    G, H = c[..., 0], c[..., 1]
+    tG, tH = G[:, -1:], H[:, -1:]
+    gain = 0.5 * (G * G / (H + l2) + (tG - G) ** 2 / (tH - H + l2)
+                  - tG * tG / (tH + l2))
+    ok = (H >= mcw) & (tH - H >= mcw)
+    return torch.where(ok, gain, -torch.inf)
+
+
+def _root_gap(gains64, f, b, floor):
+    """(best f64 gain - the chosen split's f64 gain) / |best|; a root left
+    unsplit must have no f64 gain above the grower's floor."""
+    best = float(gains64.max())
+    if f < 0:
+        return 0.0 if best <= floor * (1 + TREE_GAIN_RTOL) else float("inf")
+    return (best - float(gains64[f, b])) / max(abs(best), 1e-30)
+
+
+def _tree_root_checks(family, model, Xb, y):
+    """The largest relative gap between each tree's chosen root split and
+    the best split of an f64 histogram of the same rows and targets (for
+    the boosting families, the gradients the fit had at that round)."""
+    import torch
+    import torch.nn.functional as F_
+    from neurondb_tpu_torch.ml import boosting as BO
+    from neurondb_tpu_torch.ml import trees as TR
+    N = Xb.shape[0]
+    trees = model["trees"]
+    worst = 0.0
+    if family in ("decision_tree", "random_forest", "gradient_boosting"):
+        C = trees["leaf"].shape[-1]
+        Y = F_.one_hot(y.long(), C).float() if family != "gradient_boosting" \
+            else y.float()[:, None]
+        ones = torch.ones(N, device=Xb.device)
+        if family == "decision_tree":
+            return _root_gap(_var_gains64(Xb, ones, Y, 1),
+                             int(trees["feat"][0, 0]),
+                             int(trees["tbin"][0, 0]), 1e-7)
+        if family == "random_forest":
+            gen = torch.Generator(device=Xb.device)
+            gen.manual_seed(0)
+            for t in range(trees["feat"].shape[0]):
+                w = torch.poisson(torch.ones((N,), device=Xb.device),
+                                  generator=gen)
+                fm = torch.rand((Xb.shape[1],), generator=gen,
+                                device=Xb.device) < 0.7
+                g64 = _var_gains64(torch.where(fm[None, :], Xb, 0), w, Y, 1)
+                worst = max(worst, _root_gap(g64, int(trees["feat"][t, 0]),
+                                             int(trees["tbin"][t, 0]), 1e-7))
+            return worst
+        pred = model["base"][None, :].expand(N, 1).clone()
+        lr = float(model["learning_rate"])
+        for t in range(trees["feat"].shape[0]):
+            tree = {k: v[t] for k, v in trees.items()}
+            g64 = _var_gains64(Xb, ones, Y - pred, 5)
+            worst = max(worst, _root_gap(g64, int(tree["feat"][0]),
+                                         int(tree["tbin"][0]), 1e-7))
+            pred = pred + lr * TR.tree_predict(tree, Xb, depth=4)
+        return worst
+    C = int(model["C"])
+    Y = F_.one_hot(y.long(), C).float()
+    pred = torch.zeros((N, C), device=Xb.device)
+    lr = float(model["lr"])
+    if family == "catboost":
+        perm = np.random.default_rng(0).permutation(N)
+        pos = np.empty(N, np.int64)
+        pos[perm] = np.arange(N)
+        pos = torch.from_numpy(pos).to(Xb.device)
+    for t in range(trees["leaf"].shape[0]):
+        g, h = BO._grad_hess(pred, Y, "classify")
+        for c in range(C):
+            tree = {k: v[t, c] for k, v in trees.items()}
+            gc, hc = g[:, c].contiguous(), h[:, c].contiguous()
+            if family == "catboost":
+                g64 = _gh_gains64(Xb, gc, hc, 3.0)
+                worst = max(worst, _root_gap(g64, int(tree["feats"][0]),
+                                             int(tree["bins"][0]), 0.0))
+                member = BO._oblivious_leaf_index(Xb, tree["feats"],
+                                                  tree["bins"])
+                pred[:, c] += lr * BO.ordered_leaf_values(gc, hc, member, pos,
+                                                          l2=3.0)
+                continue
+            g64 = _gh_gains64(Xb, gc, hc, 1.0)
+            worst = max(worst, _root_gap(g64, int(tree["feat"][0]),
+                                         int(tree["tbin"][0]), 0.0))
+            upd = BO._xgb_tree_predict(tree, Xb, depth=6) \
+                if family == "xgboost" else \
+                BO._leafwise_predict(tree, Xb, max_steps=31)
+            pred[:, c] += lr * upd
+    return worst
+
+
+def _np_bins(X, edges):
+    return np.stack([np.searchsorted(edges[f], X[:, f], side="left")
+                     for f in range(X.shape[1])], 1)
+
+
+def _np_tree_predict(model, X):
+    """Predictions from the persisted arrays by a host numpy traversal
+    (f32 sums in the port's order)."""
+    Xb = _np_bins(X, model["edges"])
+    rows = np.arange(len(X))
+    if "algo" not in model:                      # trees.py ensembles
+        tr = model["trees"]
+        depth = int(model["depth"])
+        acc = np.zeros((len(X), tr["leaf"].shape[-1]), np.float32)
+        for t in range(tr["feat"].shape[0]):
+            node = np.zeros(len(X), np.int64)
+            for _ in range(depth):
+                f, b = tr["feat"][t][node], tr["tbin"][t][node]
+                right = Xb[rows, np.maximum(f, 0)] > b
+                node = np.where(f >= 0, 2 * node + 1 + right, node)
+            acc = acc + tr["leaf"][t][node]
+        if int(model["kind"]) == 1:
+            raw = model["base"][None, :] + np.float32(
+                model["learning_rate"]) * acc
+        else:
+            raw = acc / np.float32(tr["feat"].shape[0])
+        if bool(model["task_classify"]):
+            return raw.argmax(1).astype(np.int32)
+        return raw[:, 0]
+    tr = model["trees"]
+    algo = str(model["algo"])
+    lr = np.float32(model["lr"])
+    if algo == "catboost":
+        T, C = tr["feats"].shape[:2]
+        out = np.zeros((len(X), C), np.float32)
+        for t in range(T):
+            for c in range(C):
+                member = np.zeros(len(X), np.int64)
+                for lvl in range(tr["feats"].shape[2]):
+                    member = member * 2 + (Xb[:, tr["feats"][t, c, lvl]]
+                                           > tr["bins"][t, c, lvl])
+                out[:, c] = out[:, c] + lr * tr["leaf"][t, c][member]
+        return out.argmax(1).astype(np.int32)
+    T, C = tr["leaf"].shape[:2]
+    acc = np.zeros((C, len(X)), np.float32)
+    steps = int(model["depth"]) if algo == "xgboost" else \
+        int(model["num_leaves"])
+    for t in range(T):
+        per = []
+        for c in range(C):
+            node = np.zeros(len(X), np.int64)
+            for _ in range(steps):
+                f, b = tr["feat"][t, c][node], tr["tbin"][t, c][node]
+                right = Xb[rows, np.maximum(f, 0)] > b
+                if algo == "xgboost":
+                    child = 2 * node + 1 + right
+                else:
+                    child = np.where(right, tr["right"][t, c][node],
+                                     tr["left"][t, c][node])
+                node = np.where(f >= 0, child, node)
+            per.append(tr["leaf"][t, c][node])
+        acc = acc + np.stack(per)
+    return (lr * acc.T).argmax(1).astype(np.int32)
+
+
+def _first_tree_plain_vs_card(family, x, y):
+    """The family's first tree on the first TREE_PLAIN_ROWS rows by the
+    plain CPU path and on the card: every array equal (the random forest
+    from the same draws; the boosting families' first class's tree from
+    the first round's gradients)."""
+    import torch
+    from neurondb_tpu_torch.ml import boosting as BO
+    from neurondb_tpu_torch.ml import trees as TR
+    n = TREE_PLAIN_ROWS
+    draws = {}
+    if family == "random_forest":
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        draws["w"] = torch.poisson(torch.ones((n,), device="cuda"),
+                                   generator=gen)[None]
+        draws["fm"] = (torch.rand((x.shape[1],), generator=gen,
+                                  device="cuda") < 0.7)[None]
+
+    def grow(dev):
+        X = torch.from_numpy(x[:n]).to(dev)
+        Yl = torch.from_numpy(y[:n]).to(dev)
+        if family == "decision_tree":
+            return TR.decision_tree_fit(X, Yl)["trees"]
+        if family == "gradient_boosting":
+            return TR.gradient_boosting_fit(X, Yl, task="regress",
+                                            n_trees=1)["trees"]
+        if family == "random_forest":
+            Xb, Y, _, _ = TR._prep(X, Yl, "classify", None)
+            return TR.forest_from_draws(Xb, Y, draws["w"].to(dev),
+                                        draws["fm"].to(dev), depth=6,
+                                        min_leaf=1)
+        Xb, Y, _, _ = BO._task_prep(X, Yl, "classify", None)
+        g, h = BO._grad_hess(torch.zeros_like(Y), Y, "classify")
+        g, h = g[:, 0].contiguous(), h[:, 0].contiguous()
+        if family == "xgboost":
+            return BO._grow_xgb_tree(
+                Xb, g, h, torch.ones(Xb.shape[1], dtype=torch.bool,
+                                     device=dev), depth=6, n_bins=64,
+                l2=1.0, gamma=0.0, min_child_weight=1.0)
+        if family == "lightgbm":
+            return BO._grow_leafwise_tree(Xb, g, h, num_leaves=31, n_bins=64,
+                                          l2=1.0, gamma=0.0,
+                                          min_child_weight=1.0)
+        feats, bins_, member = BO._grow_oblivious_tree(
+            Xb, g, h, depth=6, n_bins=64, l2=3.0, min_child_weight=1.0)
+        return {"feats": feats, "bins": bins_, "member": member}
+
+    t0 = time.perf_counter()
+    card, cpu = grow("cuda"), grow("cpu")
+    secs = time.perf_counter() - t0
+    same = {k: bool(torch.equal(card[k].cpu(), cpu[k])) for k in cpu}
+    return same, secs
+
+
+def _note_peak():
+    """Keep the allocation peak before the peak statistics are reset."""
+    import torch
+    ML2_PEAK[0] = max(ML2_PEAK[0], torch.cuda.max_memory_allocated())
+
+
+def _ml_trees(x, rows, client, reg_root, y_reg, y_bin, y_mc, smi):
+    """The six tree families on config 1's corpus (LightGBM cut, see
+    TREE_ROWS): train, predict, persist and reload, the host traversal of
+    the persisted arrays, the f64 root gains, the first tree plain vs card."""
+    import torch
+    from neurondb_tpu_torch.ml import api as ML
+    from neurondb_tpu_torch.ml import registry as MR
+    from neurondb_tpu_torch.ml import trees as TR
+    ML._ensure_loaded()
+    targets = {"decision_tree": y_mc, "random_forest": y_bin,
+               "gradient_boosting": y_reg, "xgboost": y_bin,
+               "lightgbm": y_bin, "catboost": y_bin}
+    Xp = x[rows]
+    for family, y in targets.items():
+        n = TREE_ROWS[family]
+        X = x[:n]
+        torch.cuda.synchronize()
+        _note_peak()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        t = ML._ALGORITHMS[family]
+        Xpd = torch.from_numpy(Xp).cuda()
+        if family in ("xgboost", "lightgbm", "catboost"):
+            # the API aliases these names to gradient_boosting (as the JAX
+            # package does): the registered trainer, then the registry
+            model = t.train(torch.from_numpy(X).cuda(),
+                            torch.from_numpy(y[:n]).cuda())
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            mid = MR.get_registry().register("chip", family, model, {},
+                                             {"train_seconds": train_s})
+            ev = t.evaluate(model, Xpd, torch.from_numpy(y[rows]).cuda())
+        else:
+            hp = {"task": "regress"} if family == "gradient_boosting" else {}
+            mid = client.train("chip", family, X, y[:n], hp)
+            train_s = time.perf_counter() - t0
+            model = MR.get_registry().get(mid).model
+            ev = client.evaluate(mid, Xp, y[rows])
+        peak = torch.cuda.max_memory_allocated() - base
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred = t.predict(model, Xpd).cpu().numpy()
+        pred_s = time.perf_counter() - t0
+        # a fresh registry reads the model back from its files
+        fresh = MR.ModelRegistry(reg_root, device="cuda").get(mid).model
+        reloaded = t.predict(fresh, Xpd).cpu().numpy()
+        fresh_np = MR.tree_to(fresh, torch.device("cpu"))
+        fresh_np = {k: ({kk: vv.numpy() for kk, vv in v.items()}
+                        if isinstance(v, dict) else
+                        (v.numpy() if isinstance(v, torch.Tensor) else v))
+                    for k, v in fresh_np.items()}
+        host = _np_tree_predict(fresh_np, Xp)
+        same_reload = np.array_equal(reloaded, pred)
+        same_host = np.array_equal(host, pred)
+        ML2_OWN_S[family] = train_s + pred_s
+        Xb = TR.bin_features(torch.from_numpy(X).cuda(), model["edges"])
+        gap = _tree_root_checks(family, model, Xb,
+                                torch.from_numpy(y[:n]).cuda())
+        del Xb
+        plain, plain_s = _first_tree_plain_vs_card(family, x, y)
+        torch.cuda.empty_cache()
+        log(f"[ml2] {family}: train {train_s:.2f} s ({n} x {x.shape[1]}), "
+            f"peak {peak / 2**30:.2f} GiB, predict {len(Xp) / pred_s:.0f} "
+            f"rows/s, evaluate {ev}; persisted and reloaded predicts bit "
+            f"for bit: {same_reload}; host numpy traversal of the persisted "
+            f"arrays == predict: {same_host}; largest root gap to the best "
+            f"f64 split {gap:.3e} (bar {TREE_GAIN_RTOL:.0e}); first tree on "
+            f"{TREE_PLAIN_ROWS} rows, plain CPU path vs card equal: {plain} "
+            f"({plain_s:.1f} s) on {smi}")
+        if not (same_reload and same_host):
+            fail(f"{family}: the reloaded model or the host traversal "
+                 "predicts otherwise")
+        if not gap <= TREE_GAIN_RTOL:
+            fail(f"{family}: a root split {gap} below the best f64 gain")
+        if family != "gradient_boosting" and not all(plain.values()):
+            fail(f"{family}: the first tree differs between the CPU and "
+                 f"the card: {plain}")
+    return {}
+
+
+def _ts_series():
+    """TS_POINTS minute readings: trend + season TS_SEASON + AR(2) noise."""
+    from scipy.signal import lfilter
+    rng = np.random.default_rng(ML_LABEL_SEED + 2)
+    t = np.arange(TS_POINTS)
+    e = lfilter([1.0], [1.0, -0.5, 0.2], rng.standard_normal(TS_POINTS))
+    return (10.0 + 2e-6 * t + 2.0 * np.sin(2 * np.pi * t / TS_SEASON)
+            + e).astype(np.float32)
+
+
+def _ls64(X, t, l2):
+    return np.linalg.solve(X.T @ X + l2 * np.eye(X.shape[1]), X.T @ t)
+
+
+def _arima64(y, p, d, q, l2=1e-6):
+    """Hannan-Rissanen in f64 numpy (the JAX package's algorithm)."""
+    z = np.diff(y.astype(np.float64), n=d)
+    n = len(z)
+    m = max(p + q, min(n // 4, 2 * (p + q) + 4), 1)
+    zc = z - z.mean()
+    Xl = np.lib.stride_tricks.sliding_window_view(zc, m)[:n - m]
+    wl = _ls64(Xl, zc[m:], l2)
+    e = np.concatenate([np.zeros(m), zc[m:] - Xl @ wl])
+    lag = max(p, q)
+    rows = n - lag
+    cols = [zc[lag - i: lag - i + rows] for i in range(1, p + 1)]
+    cols += [e[lag - j: lag - j + rows] for j in range(1, q + 1)]
+    w = _ls64(np.stack(cols, 1), zc[lag:], l2)
+    return w[:p], w[p:]
+
+
+def _hw64(y, season, a=0.3, b=0.1, g=0.1):
+    """The Holt-Winters recurrence in f64 (Python floats)."""
+    y = y.astype(np.float64)
+    level = float(y[:season].mean())
+    trend = (float(y[season:2 * season].mean()) - level) / season
+    seas = list(y[:season] - level)
+    fitted = np.empty(len(y))
+    yl = y.tolist()
+    for i, yt in enumerate(yl):
+        k = i % season
+        s0 = seas[k]
+        fitted[i] = level + trend + s0
+        nl = a * (yt - s0) + (1 - a) * (level + trend)
+        trend = b * (nl - level) + (1 - b) * trend
+        seas[k] = g * (yt - nl) + (1 - g) * s0
+        level = nl
+    return fitted
+
+
+def _ml_timeseries(client, smi):
+    """AR(4), Holt-Winters (season 12) and ARIMA(1,1,1) on a 1,051,200-point
+    series through the client; the recurrence kernel against its plain
+    loop. Returns the kernel row's numbers for holt_winters."""
+    import torch
+    from neurondb_tpu_torch.ml import registry as MR
+    from neurondb_tpu_torch.ops.kernels import ml_recurrence as MREC
+    y = _ts_series()
+    out = {}
+    for label, hp in (("AR(4)", {"order": 4}),
+                      ("Holt-Winters", {"method": "holt_winters",
+                                        "season": TS_SEASON}),
+                      ("ARIMA(1,1,1)", {"method": "arima"})):
+        MREC.LAUNCHES = dict.fromkeys(MREC.LAUNCHES, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mid = client.train("chip", "timeseries", y, hyperparams=hp)
+        secs = time.perf_counter() - t0
+        launches = dict(MREC.LAUNCHES)
+        m = MR.get_registry().get(mid).model
+        t0 = time.perf_counter()
+        fc = client.predict(mid, np.array([8]))
+        ML2_OWN_S[f"timeseries {label}"] = secs + time.perf_counter() - t0
+        if label == "AR(4)":
+            yc = y.astype(np.float64) - y.astype(np.float64).mean()
+            X = np.lib.stride_tricks.sliding_window_view(yc, 4)[:-1]
+            w64 = _ls64(X, yc[4:], 1e-6)
+            err = float(np.linalg.norm(m["coef"].cpu().numpy() - w64)
+                        / np.linalg.norm(w64))
+            bar = TS_AR_RTOL
+        elif label == "ARIMA(1,1,1)":
+            phi, theta = _arima64(y, 1, 1, 1)
+            w64 = np.concatenate([phi, theta])
+            w = np.concatenate([m["ar_coeffs"].cpu().numpy(),
+                                m["ma_coeffs"].cpu().numpy()])
+            err = float(np.max(np.abs(w - w64) / np.abs(w64)))
+            bar = TS_AR_RTOL
+        else:
+            out["launches"] = launches["holt_winters"]
+            t1 = time.perf_counter()
+            f64 = _hw64(y, TS_SEASON)
+            ref_s = time.perf_counter() - t1
+            err = float(np.max(np.abs(m["fitted"].cpu().numpy() - f64))
+                        / np.max(np.abs(y)))
+            bar = HW_RTOL
+        log(f"[ml2] timeseries {label}: train {secs:.2f} s ({TS_POINTS} "
+            f"points), recurrence launches {launches}, forecast {fc[:3]}..., "
+            f"vs the f64 reference: relative error {err:.3e} (bar {bar:.0e})")
+        if not np.isfinite(fc).all() or not err <= bar:
+            fail(f"timeseries {label} off its f64 reference")
+        if label == "Holt-Winters" and launches["holt_winters"] != 1:
+            fail("Holt-Winters did not run the recurrence kernel once")
+    # the kernel against the plain loop on the first HW_CHECK_STEPS steps
+    yd = torch.from_numpy(y[:HW_CHECK_STEPS]).cuda()
+    l0 = yd[:TS_SEASON].mean()
+    t0_ = (yd[TS_SEASON:2 * TS_SEASON].mean() - l0) / TS_SEASON
+    s0 = yd[:TS_SEASON] - l0
+    kw = dict(alpha=0.3, beta=0.1, gamma=0.1)
+    card = MREC.holt_winters(yd, l0, t0_, s0, **kw)
+    t1 = time.perf_counter()
+    plain = MREC.holt_winters_plain(yd.cpu(), l0.cpu(), t0_.cpu(), s0.cpu(),
+                                    **kw)
+    plain_ms = (time.perf_counter() - t1) * 1e3
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(card, plain))
+    err = float((card[3].cpu() - plain[3]).abs().max())
+    ms = _cuda_ms(lambda: MREC.holt_winters(yd, l0, t0_, s0, **kw), 5)
+    yfull = torch.from_numpy(y).cuda()
+    full_ms = _cuda_ms(lambda: MREC.holt_winters(
+        yfull, l0, t0_, s0, **kw), 2)
+    n = HW_CHECK_STEPS
+    bound, by = _bound(8 * n + 8 * TS_SEASON, 10 * n, "f32")
+    log(f"[ml2] holt_winters kernel vs plain loop on {n} steps: equal bit "
+        f"for bit {same}; kernel {ms:.3f} ms, plain loop on the CPU "
+        f"{plain_ms:.1f} ms, bound {bound:.5f} ms ({by}); dependent-step "
+        f"latency bound {n * SMEM_ROUND_TRIP_NS * 1e-6:.3f} ms; the whole "
+        f"{TS_POINTS}-point series {full_ms:.2f} ms on {smi}")
+    if not same:
+        fail("the Holt-Winters kernel differs from its plain loop")
+    out.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+               bound_by=by, library_ms=None, shape=f"{n} steps")
+    return out
+
+
+def _ml1m_ratings():
+    """MovieLens-1M's geometry from a seed: a rank-16 model plus noise,
+    rounded and clipped to 1-5, every user with >= 20 ratings."""
+    c = ML1M
+    rng = np.random.default_rng(ML_LABEL_SEED + 3)
+    U, I = c["users"], c["items"]
+    extra = c["ratings"] - c["min_per_user"] * U
+    wu = rng.lognormal(0.0, 0.9, U)
+    per = c["min_per_user"] + rng.multinomial(extra, wu / wu.sum())
+    while (per > I).any():                   # no user rates an item twice
+        spill = int((per - I).clip(min=0).sum())
+        per = np.minimum(per, I)
+        room = per < I
+        per[room] += rng.multinomial(spill, np.full(room.sum(),
+                                                    1.0 / room.sum()))
+    logpop = np.log(rng.pareto(1.0, I) + 1.0)
+    users = np.repeat(np.arange(U), per)
+    # each user's items: popularity-weighted, without replacement (the
+    # Gumbel top-k draw)
+    items = np.concatenate([np.argpartition(
+        -(logpop + rng.gumbel(size=I)), k - 1)[:k] for k in per])
+    P = rng.standard_normal((U, c["rank"])) / c["rank"] ** 0.25
+    Q = rng.standard_normal((I, c["rank"])) / c["rank"] ** 0.25
+    r = 3.6 + (P[users] * Q[items]).sum(1) + 0.5 * rng.standard_normal(
+        len(users))
+    r = np.clip(np.round(r), 1, 5)
+    return np.stack([users, items, r], 1).astype(np.float32)
+
+
+def _ml_recommender(client, smi):
+    import torch
+    from neurondb_tpu_torch.ml import registry as MR
+    trip = _ml1m_ratings()
+    rng = np.random.default_rng(ML_LABEL_SEED + 4)
+    test = rng.uniform(size=len(trip)) < ALS_HOLDOUT
+    # the training triples must name the last user and item
+    test[np.argmax(trip[:, 0])] = test[np.argmax(trip[:, 1])] = False
+    train = trip[~test]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mid = client.train("chip", "recommender", train,
+                       hyperparams={"factors": 16, "iters": 10})
+    secs = time.perf_counter() - t0
+    m = MR.get_registry().get(mid).model
+    t0 = time.perf_counter()
+    pred = client.predict(mid, trip[test, :2])
+    pred_rate = int(test.sum()) / (time.perf_counter() - t0)
+    ML2_OWN_S["recommender"] = secs + int(test.sum()) / pred_rate
+    rmse = float(np.sqrt(np.mean((pred - trip[test, 2]) ** 2)))
+    # the last half-step: each item row against its f64 normal equations
+    P = m["user_factors"].double().cpu().numpy()
+    Q = m["item_factors"].cpu().numpy()
+    import scipy.sparse as sp
+    U, I = P.shape[0], Q.shape[0]
+    u, i = train[:, 0].astype(int), train[:, 1].astype(int)
+    f = P.shape[1]
+    Mi = sp.csr_matrix((np.ones(len(u)), (i, u)), shape=(I, U))
+    Ri = sp.csr_matrix((train[:, 2].astype(np.float64), (i, u)),
+                       shape=(I, U))
+    A = (Mi @ (P[:, :, None] * P[:, None, :]).reshape(U, f * f)).reshape(
+        I, f, f) + 0.1 * np.eye(f)
+    b = Ri @ P
+    Q64 = np.linalg.solve(A, b[:, :, None])[:, :, 0]
+    # how well each port row solves its f64 system: the residual relative
+    # to the right-hand side (and, printed, the distance to the f64 solve)
+    res = np.linalg.norm((A @ Q.astype(np.float64)[:, :, None])[:, :, 0] - b,
+                         axis=1) / np.maximum(np.linalg.norm(b, axis=1), 1e-12)
+    fwd = np.linalg.norm(Q - Q64, axis=1) / np.maximum(
+        np.linalg.norm(Q64, axis=1), 1e-12)
+    log(f"[ml2] recommender (ML-1M geometry: {U} users x {I} items, "
+        f"{len(trip)} ratings, {int(test.sum())} held out): ALS 16 factors "
+        f"10 iterations in {secs:.2f} s; predict {pred_rate:.0f} rows/s; "
+        f"held-out RMSE {rmse:.4f}; last "
+        f"half-step rows in their f64 normal equations: max residual "
+        f"{res.max():.3e} of |b| (bar {ALS_RTOL:.0e}), max distance to the "
+        f"f64 solve {fwd.max():.3e} of its norm on {smi}")
+    if not res.max() <= ALS_RTOL or not np.isfinite(rmse):
+        fail("ALS item factors off their f64 normal equations")
+
+
+def _adam64(params, Xn, y, steps, lr=1e-3, l2=1e-5):
+    """optax's Adam on the MLP's loss in f64 (autograd on the card)."""
+    import torch
+    p = [t.detach().double().clone().requires_grad_(True) for t in params]
+    m = [torch.zeros_like(t) for t in p]
+    v = [torch.zeros_like(t) for t in p]
+    nW = len(p) // 2
+    for step in range(1, steps + 1):
+        h = Xn
+        for k in range(nW):
+            h = h @ p[k] + p[nW + k]
+            if k < nW - 1:
+                h = torch.relu(h)
+        nll = -torch.log_softmax(h, 1).gather(1, y[:, None]).mean()
+        loss = nll + l2 * sum((W * W).sum() for W in p[:nW])
+        grads = torch.autograd.grad(loss, p)
+        with torch.no_grad():
+            for k, g in enumerate(grads):
+                m[k] = 0.9 * m[k] + 0.1 * g
+                v[k] = 0.999 * v[k] + 0.001 * g * g
+                mh = m[k] / (1 - 0.9 ** step)
+                vh = v[k] / (1 - 0.999 ** step)
+                p[k] -= lr * mh / (torch.sqrt(vh) + 1e-8)
+    return [t.detach() for t in p]
+
+
+def _ml_mlp(x, client, y_mc, bayes_mc, smi):
+    import torch
+    from neurondb_tpu_torch.ml import neural as NN
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mid = client.train("chip", "neural_network", x, y_mc)
+    secs = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    acc = float(np.mean(client.predict(mid, x) == y_mc))
+    pred_rate = x.shape[0] / (time.perf_counter() - t0)
+    ML2_OWN_S["neural_network"] = secs + x.shape[0] / pred_rate
+    # the first MLP_CHECK_STEPS Adam steps from the fit's own init, in f32
+    # (the port) and in f64 (optax's update written out)
+    xd = torch.from_numpy(x).cuda()
+    yd = torch.from_numpy(y_mc).cuda().long()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    init = NN._init_mlp(gen, [x.shape[1], 64, 32, 10], "cuda")
+    mu, sd = xd.mean(0), torch.clamp(xd.std(0, correction=0), min=1e-6)
+    got = NN.mlp_train(init, (xd - mu) / sd, yd, epochs=MLP_CHECK_STEPS)
+    x64 = xd.double()
+    sd64 = torch.clamp(x64.std(0, correction=0), min=1e-6)
+    ref = _adam64(init["W"] + init["b"], (x64 - x64.mean(0)) / sd64, yd,
+                  MLP_CHECK_STEPS)
+    rel = max(float(torch.linalg.norm(a.double() - b) / torch.linalg.norm(b))
+              for a, b in zip(got["W"] + got["b"], ref))
+    del xd, x64, ref
+    torch.cuda.empty_cache()
+    log(f"[ml2] neural_network (64, 32), 200 full-batch epochs on "
+        f"{x.shape[0]} x {x.shape[1]}: train {secs:.2f} s, predict "
+        f"{pred_rate:.0f} rows/s, accuracy {acc:.4f} "
+        f"(Bayes-optimal {bayes_mc:.4f}); {MLP_CHECK_STEPS} Adam steps vs "
+        f"f64, max relative error {rel:.3e} (bar {MLP_RTOL:.0e}) on {smi}")
+    if not rel <= MLP_RTOL:
+        fail("MLP Adam steps off the f64 recomputation")
+    if acc < 0.5 * bayes_mc:
+        fail(f"MLP accuracy {acc} far under the Bayes-optimal {bayes_mc}")
+
+
+def _gridworld():
+    """Q_TRANSITIONS logged moves of a uniform policy on a Q_SIDE^2 grid;
+    reward 1 on entering the far corner."""
+    rng = np.random.default_rng(ML_LABEL_SEED + 5)
+    S = Q_SIDE * Q_SIDE
+    s = rng.integers(0, S, Q_TRANSITIONS)
+    a = rng.integers(0, 4, Q_TRANSITIONS)
+    s2 = _grid_step(s, a)
+    return np.stack([s, a, (s2 == S - 1).astype(np.float32), s2],
+                    1).astype(np.float32)
+
+
+def _grid_step(s, a):
+    r, c = s // Q_SIDE, s % Q_SIDE
+    r = np.clip(r + np.array([-1, 1, 0, 0])[a], 0, Q_SIDE - 1)
+    c = np.clip(c + np.array([0, 0, -1, 1])[a], 0, Q_SIDE - 1)
+    return r * Q_SIDE + c
+
+
+def _ml_qlearning(client, smi):
+    """Q-learning through the client (one kernel launch), the greedy
+    policy walked from every state, the kernel against the plain loop on
+    one epoch of the first Q_CHECK transitions."""
+    import torch
+    from neurondb_tpu_torch.ops.kernels import ml_recurrence as MREC
+    trans = _gridworld()
+    MREC.LAUNCHES = dict.fromkeys(MREC.LAUNCHES, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mid = client.train("chip", "reinforcement_learning", trans)
+    secs = time.perf_counter() - t0
+    launches = MREC.LAUNCHES["q_learning"]
+    S = Q_SIDE * Q_SIDE
+    t0 = time.perf_counter()
+    policy = client.predict(mid, np.arange(S))
+    pred_ms = (time.perf_counter() - t0) * 1e3
+    ML2_OWN_S["reinforcement_learning"] = secs + pred_ms / 1e3
+    state = np.arange(S)
+    for _ in range(4 * Q_SIDE):
+        state = np.where(state == S - 1, state, _grid_step(state, policy[state]))
+    reached = int((state == S - 1).sum())
+    t = torch.from_numpy(trans[:Q_CHECK]).cuda()
+    s, a, s2 = (t[:, i].to(torch.int32) for i in (0, 1, 3))
+    r = t[:, 2].contiguous()
+    Q0 = torch.zeros((S, 4), device="cuda")
+    kw = dict(alpha=0.1, gamma=0.95, epochs=1)
+    card = MREC.q_learning(s, a, r, s2, Q0, **kw)
+    t1 = time.perf_counter()
+    plain = MREC.q_learning_plain(s.cpu(), a.cpu(), r.cpu(), s2.cpu(),
+                                  Q0.cpu(), **kw)
+    plain_ms = (time.perf_counter() - t1) * 1e3
+    same = torch.equal(card.cpu(), plain)
+    err = float((card.cpu() - plain).abs().max())
+    ms = _cuda_ms(lambda: MREC.q_learning(s, a, r, s2, Q0, **kw), 3)
+    n = Q_CHECK
+    bound, by = _bound(16 * n + 2 * 4 * S * 4, 8 * n, "f32")
+    log(f"[ml2] reinforcement_learning: {Q_TRANSITIONS} transitions x 50 "
+        f"epochs on a {Q_SIDE}x{Q_SIDE} grid in {secs:.2f} s, q_learning "
+        f"launches {launches}; the policy of {S} states in {pred_ms:.2f} ms; "
+        f"the greedy policy reaches the goal from "
+        f"{reached} of {S} states; kernel vs plain loop on {n} transitions "
+        f"x 1 epoch: equal bit for bit {same}; kernel {ms:.3f} ms, plain "
+        f"loop on the CPU {plain_ms:.1f} ms, bound {bound:.5f} ms ({by}), "
+        f"dependent-step latency bound {n * SMEM_ROUND_TRIP_NS * 1e-6:.3f} "
+        f"ms on {smi}")
+    if launches != 1:
+        fail("Q-learning did not run the recurrence kernel once")
+    if reached != S:
+        fail(f"the greedy policy reaches the goal from {reached} of {S}")
+    if not same:
+        fail("the Q-learning kernel differs from its plain loop")
+    return dict(launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, library_ms=None,
+                shape=f"{n} transitions x 1 epoch")
+
+
+def _ml_gcn(x, y_mc, reg_root, smi):
+    """A GCN on the HNSW phase's 1M x 32 level-0 graph, features the
+    corpus, labels y_mc, a 10% train mask: the first layer's propagation
+    against an f64 scipy.sparse mean on the host, the loss before and
+    after, the model persisted and reloaded."""
+    import torch
+    import scipy.sparse as sp
+    import torch.nn.functional as F_
+    from neurondb_tpu_torch.ml import gnn as GN
+    from neurondb_tpu_torch.ml import registry as MR
+    from neurondb_tpu_torch.types.graph import VectorGraph
+    nbr_h = HNSW_LEVEL0
+    if nbr_h is None:
+        import neurondb_tpu_torch as nt
+        index = nt.HNSWIndex(x, m=16, seed=0, build_mode="bulk",
+                             device="cuda")
+        nbr_h = index._nbr0[:index.n].cpu().numpy()
+        del index
+    nbr_h = np.asarray(nbr_h)
+    nbr = torch.from_numpy(nbr_h).cuda()
+    g = VectorGraph(nbr, (nbr >= 0).float())
+    X = torch.from_numpy(x).cuda()
+    y = torch.from_numpy(y_mc).cuda()
+    n = x.shape[0]
+    tm = (np.random.default_rng(ML_LABEL_SEED + 6).uniform(size=n)
+          < GCN_TRAIN_FRAC).astype(np.float32)
+    tmd = torch.from_numpy(tm).cuda()
+    P1 = GN._propagate_chunked(nbr, nbr >= 0, X)
+    k = GCN_PROP_ROWS
+    rr, cc = np.nonzero(nbr_h[:k] >= 0)
+    A = sp.csr_matrix((np.ones(len(rr)), (rr, nbr_h[:k][rr, cc])),
+                      shape=(k, n))
+    deg = np.maximum(np.asarray(A.sum(1)), 1.0)
+    x64 = x.astype(np.float64)
+    ref = (A @ x64 + x64[:k]) / (deg + 1.0)
+    err = float(np.max(np.abs(P1[:k].cpu().numpy() - ref)) / np.max(np.abs(ref)))
+
+    def loss(params):
+        logits = GN._forward_from(params, nbr, nbr >= 0, P1)
+        nll = -torch.log_softmax(logits, 1).gather(1, y.long()[:, None])[:, 0]
+        return float((nll * tmd).sum() / tmd.sum())
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    init = GN.gcn_init(gen, x.shape[1], 32, 10, 2, device="cuda")
+    torch.cuda.synchronize()
+    _note_peak()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = GN.gcn_fit(g, X, y, train_mask=tm)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    l0, l1 = loss(init), loss(model["params"])
+    t0 = time.perf_counter()
+    pred = GN.gcn_predict(model, X).cpu().numpy()
+    ML2_OWN_S["gcn"] = secs + time.perf_counter() - t0
+    acc = float(np.mean(pred[tm == 0] == y_mc[tm == 0]))
+    mid = MR.get_registry().register("chip", "gcn", model, {})
+    again = MR.ModelRegistry(reg_root, device="cuda").get(mid).model
+    same = np.array_equal(GN.gcn_predict(again, X).cpu().numpy(), pred)
+    del X, P1, nbr, g
+    torch.cuda.empty_cache()
+    log(f"[ml2] gcn on the {nbr_h.shape} level-0 graph, {int(tm.sum())} "
+        f"training nodes: fit (200 steps) {secs:.2f} s, peak "
+        f"{peak / 2**30:.2f} GiB; first-layer propagation vs f64 "
+        f"scipy.sparse on {k} rows: max error {err:.3e} of max |ref| (bar "
+        f"{GCN_PROP_RTOL:.0e}); train loss {l0:.4f} -> {l1:.4f}; held-out "
+        f"accuracy {acc:.4f}; persisted and reloaded predicts bit for bit "
+        f"{same} on {smi}")
+    if not err <= GCN_PROP_RTOL:
+        fail("GCN propagation off the f64 scipy.sparse mean")
+    if not l1 < l0:
+        fail("the GCN loss did not fall")
+    if not same:
+        fail("the reloaded GCN predicts otherwise")
+
+
+def _ml_lda(smi):
+    import torch
+    from neurondb_tpu_torch.ml import extras as EX
+    docs, _ = _rag_corpus(np.random.default_rng(ML_LABEL_SEED + 7))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = EX.lda_topics(docs, n_topics=5, device="cuda")
+    secs = time.perf_counter() - t0
+    ML2_OWN_S["lda_topics"] = secs
+    X, _ = EX._counts(docs)
+    Xd = torch.from_numpy(X).cuda()
+    # restart 0 from its start: the proxy after one EM step and after 30,
+    # and the topic rows of the second
+
+    def proxy(lam, gamma):
+        tw_ = lam / lam.sum(1, keepdim=True)
+        dt_ = gamma / gamma.sum(1, keepdim=True)
+        return float((Xd * torch.log(dt_ @ tw_ + 1e-30)).sum())
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    lam0 = torch._standard_gamma(torch.full((5, X.shape[1]), 100.0,
+                                            device="cuda"),
+                                 generator=gen) * 0.01 + 0.01
+    ll1 = proxy(*EX.lda_run(Xd, lam0, iters=1))
+    lam, gamma = EX.lda_run(Xd, lam0, iters=30)
+    ll30 = proxy(lam, gamma)
+    tw = (lam / lam.sum(1, keepdim=True)).double().cpu().numpy()
+    sums = max(np.abs(tw.sum(1) - 1.0).max(),
+               np.abs(np.asarray(out["doc_topic"]).sum(1) - 1.0).max())
+    log(f"[ml2] lda_topics on {len(docs)} documents ({X.shape[1]} terms), 5 "
+        f"topics: {secs:.2f} s; topic and document rows sum to 1 within "
+        f"{sums:.2e} (bar "
+        f"{LDA_SUM_TOL:.0e}); restart 0's log-likelihood proxy {ll1:.6g} "
+        f"after 1 EM step, {ll30:.6g} after 30; topic sizes "
+        f"{[t['size'] for t in out['topics']]} on {smi}")
+    if not sums <= LDA_SUM_TOL or not ll30 >= ll1:
+        fail("LDA topic rows do not sum to 1 or the proxy fell")
+
+
+def _psi64(ref, live, bins=10):
+    qs = np.quantile(ref.astype(np.float64), np.linspace(0, 1, bins + 1))
+    qs[0], qs[-1] = -np.inf, np.inf
+    r, _ = np.histogram(ref, qs)
+    l, _ = np.histogram(live, qs)
+    rp = np.maximum(r / len(ref), 1e-6)
+    lp = np.maximum(l / len(live), 1e-6)
+    return float(np.sum((lp - rp) * np.log(lp / rp)))
+
+
+def _ml_drift(x, smi):
+    import torch
+    from scipy.stats import ks_2samp
+    from neurondb_tpu_torch.ml import drift as DR
+    ref = x[:DRIFT_ROWS]
+    live = x[-DRIFT_ROWS:].copy()
+    live[:, :DRIFT_SHIFTED] += ref[:, :DRIFT_SHIFTED].std(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = DR.feature_drift_report(torch.from_numpy(ref).cuda(),
+                                  torch.from_numpy(live).cuda())
+    emb = DR.embedding_drift(torch.from_numpy(ref).cuda(),
+                             torch.from_numpy(live).cuda())
+    secs = time.perf_counter() - t0
+    ML2_OWN_S["drift"] = secs
+    psi_err = ks_err = 0.0
+    for f in range(DRIFT_CHECK):
+        psi_err = max(psi_err, abs(DR.population_stability_index(
+            torch.from_numpy(ref[:, f]).cuda(),
+            torch.from_numpy(live[:, f]).cuda()) - _psi64(ref[:, f],
+                                                          live[:, f])))
+        ks_err = max(ks_err, abs(rep["features"][f]["ks"] - round(
+            ks_2samp(ref[:, f], live[:, f]).statistic, 4)))
+    drifted = [r["feature"] for r in rep["features"] if r["drifted"]]
+    log(f"[ml2] drift, first vs last {DRIFT_ROWS} rows with features "
+        f"0-{DRIFT_SHIFTED - 1} shifted by their std: report in {secs:.2f} s, drifted "
+        f"features {drifted}, max PSI {rep['max_psi']}; on {DRIFT_CHECK} "
+        f"features PSI vs f64 numpy max |diff| {psi_err:.2e} (bar "
+        f"{PSI_ATOL:.0e}), KS vs scipy.stats.ks_2samp max |diff| "
+        f"{ks_err:.2e}; embedding drift {emb} on {smi}")
+    if psi_err > PSI_ATOL or ks_err > 0:
+        fail("drift statistics off their references")
+    if drifted != list(range(DRIFT_SHIFTED)):
+        fail(f"drift flags {drifted}, shifted {list(range(DRIFT_SHIFTED))}")
+
+
+def _ml_automl(x, y_bin, smi):
+    import torch
+    from neurondb_tpu_torch.ml import api as ML
+    from neurondb_tpu_torch.ml import automl as AM
+    X, y = x[:AUTOML_ROWS], y_bin[:AUTOML_ROWS]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = AM.automl("chip", X, y, folds=3, device="cuda")
+    secs = time.perf_counter() - t0
+    ML2_OWN_S["automl"] = secs
+    cv = AM.cross_validate("naive_bayes", X, y, folds=5, device="cuda")
+    # each leaderboard score from the trainers called directly
+    Xd, yd = torch.from_numpy(X).cuda(), torch.from_numpy(y).cuda()
+    worst = 0.0
+    for row in res["leaderboard"]:
+        t = ML._resolve(row["algorithm"])
+        scores = []
+        for trn, val in AM._folds(len(X), 3, 0):
+            m = t.train(Xd[torch.from_numpy(trn).cuda()],
+                        yd[torch.from_numpy(trn).cuda()],
+                        **row["hyperparams"])
+            p = t.predict(m, Xd[torch.from_numpy(val).cuda()]).cpu().numpy()
+            scores.append(float((p == y[val]).mean()))
+        worst = max(worst, abs(float(np.mean(scores)) - row["score"]))
+    board = [(r["algorithm"], round(r["score"], 4), r["hyperparams"])
+             for r in res["leaderboard"]]
+    log(f"[ml2] automl on {AUTOML_ROWS} rows, 3 folds: {secs:.2f} s, "
+        f"leaderboard {board}, winner {res['best_algorithm']} (model "
+        f"{res['model_id']}); scores recomputed by the trainers on the same "
+        f"folds, max |diff| {worst:.2e} (bar {AUTOML_TOL:.0e}); "
+        f"cross_validate naive_bayes 5 folds mean {cv['mean_score']:.4f} on "
+        f"{smi}")
+    if worst > AUTOML_TOL:
+        fail("automl scores off the trainers' own")
+
+
+def _ml_mlops(x, rows, client, models, smi):
+    """One A/B test between two models (an outcome is a prediction equal
+    to the model's own label) and one ModelMonitor pass."""
+    from neurondb_tpu_torch.ml import mlops as MO
+    (a, ya), (b, yb) = models
+    label = {a: ya[rows], b: yb[rows]}
+    ab = MO.ABTestManager(seed=0)
+    ab.create("trees", a, b, traffic_split=0.5)
+    Xp = x[rows]
+    preds = {a: client.predict(a, Xp), b: client.predict(b, Xp)}
+    rng = np.random.default_rng(ML_LABEL_SEED + 8)
+    for j in rng.integers(0, len(rows), 10_000):
+        mid = ab.route("trees")
+        ab.record_outcome("trees", mid, bool(preds[mid][j] == label[mid][j]))
+    ev = ab.evaluate("trees")
+    mon = MO.ModelMonitor(a, x[:100_000])
+    alert = mon.observe(Xp, predictions=preds[a])
+    log(f"[ml2] mlops: A/B test {ev}; ModelMonitor summary {mon.summary()}, "
+        f"alert {alert} on {smi}")
+
+
+def phase_ml2(x, rows, client, reg_root, y_reg, y_bin, y_mc, bayes_mc, smi):
+    """The families ported last through Client(device="cuda") (the
+    boosting families through their registered trainers and the registry:
+    the API aliases their names to gradient_boosting), each held to a
+    reference computed apart from the code under test. Returns the
+    recurrence kernel's rows."""
+    import torch
+    from neurondb_tpu_torch.ml import registry as MR
+    t_phase = time.perf_counter()
+    times, peaks = {}, {}
+    ML2_OWN_S.clear()
+    ML2_PEAK[0] = torch.cuda.max_memory_allocated()
+
+    def timed(name, fn, *args):
+        torch.cuda.synchronize()
+        _note_peak()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        times[name] = round(time.perf_counter() - t0, 2)
+        peaks[name] = round((torch.cuda.max_memory_allocated() - base)
+                            / 2**30, 2)
+        _note_peak()
+        return out
+
+    timed("trees", _ml_trees, x, rows, client, reg_root, y_reg, y_bin, y_mc,
+          smi)
+    hw = timed("timeseries", _ml_timeseries, client, smi)
+    timed("recommender", _ml_recommender, client, smi)
+    timed("mlp", _ml_mlp, x, client, y_mc, bayes_mc, smi)
+    q = timed("q_learning", _ml_qlearning, client, smi)
+    timed("gcn", _ml_gcn, x, y_mc, reg_root, smi)
+    timed("lda", _ml_lda, smi)
+    timed("drift", _ml_drift, x, smi)
+    timed("automl", _ml_automl, x, y_bin, smi)
+    ids = {r["algorithm"]: r["model_id"]
+           for r in MR.get_registry().list("chip")}
+    timed("mlops", _ml_mlops, x, rows, client,
+          [(ids["decision_tree"], y_mc), (ids["random_forest"], y_bin)], smi)
+    secs = time.perf_counter() - t_phase
+    own = {k: round(v, 2) for k, v in ML2_OWN_S.items()}
+    log(f"[ml2] the families' own train + predict {sum(own.values()):.1f} s "
+        f"(budget {ML2_PHASE_S} s): {own}; with the reference checks "
+        f"{secs:.1f} s, by section {times}, peak device memory GiB by "
+        f"section {peaks} on {smi}")
+    if sum(own.values()) > ML2_PHASE_S:
+        fail(f"the families ported last took {sum(own.values()):.1f} s of "
+             f"their {ML2_PHASE_S} s")
+    _note_peak()
+    return {"q_learning": q, "holt_winters": hw}, ML2_PEAK[0]
+
+
+def _ml2_fixture(smi):
+    """An XGBoost (binary) and a Holt-Winters model the JAX registry
+    persisted on the CPU (tests/data/jax_registry_ml2) load on the card and
+    predict as the JAX package did on the CPU."""
+    import torch
+    from neurondb_tpu_torch.ml import api as ML
+    from neurondb_tpu_torch.ml import boosting as BO
+    from neurondb_tpu_torch.ml import registry as MR
+    ML._ensure_loaded()
+    root = os.path.join(ROOT, "tests", "data", "jax_registry_ml2")
+    reg = MR.ModelRegistry(root, device="cuda")
+    with np.load(os.path.join(root, "expected.npz")) as e:
+        X, want_xgb, want_hw = e["X"], e["xgboost"], e["holt_winters"]
+    xgb = reg.get(1).model
+    Xd = torch.from_numpy(X).cuda()
+    got = ML._ALGORITHMS["xgboost"].predict(xgb, Xd).cpu().numpy()
+    raw = BO.xgboost_raw(xgb, Xd)
+    top2 = torch.topk(raw, 2, dim=1).values
+    gap = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+    off = (got != want_xgb) & (gap > FIXTURE_TIE)
+    hw = ML._ALGORITHMS["timeseries"].predict(
+        reg.get(2).model, torch.tensor([24], device="cuda")).cpu().numpy()
+    err = float(np.max(np.abs(hw - want_hw)))
+    log(f"[ml2] JAX-format models (tests/data/jax_registry_ml2) on the card: "
+        f"xgboost {int((got != want_xgb).sum())} of {len(X)} labels differ "
+        f"from the JAX CPU run ({int(off.sum())} away from a tie under "
+        f"{FIXTURE_TIE}), holt_winters forecast max |diff| {err:.3e} (bar "
+        f"{FIXTURE_TOL}) on {smi}")
+    if off.any() or err > FIXTURE_TOL:
+        fail("a JAX-format model of the last families predicts otherwise")
+
+
 def main(argv):
     import torch
     kernels_only = "--kernels-only" in argv
@@ -4353,6 +5419,7 @@ def main(argv):
     pq_launches = {"exact": None, "packed": None}
     flash_launches = {"bf16": None, "f32": None}
     probe_launches = {"exact": None}
+    rec_stats = None
     if not kernels_only:
         index, qb, chosen, flat_launches, x, gt, exact = phase_main()
         _profile(f"profile nprobe {chosen} batch {BATCH}",
@@ -4371,7 +5438,7 @@ def main(argv):
         # the hybrid ANN takes the default selection (packed at 200k rows)
         from neurondb_tpu_torch import get_config
         flat_launches[get_config().ivf_select] += phase_hybrid(x, smi)
-        phase_ml(x, qb, smi)
+        rec_stats = phase_ml(x, qb, smi)
         n_probe, n_pq, n_grouped, sh_mode = phase_sharded(x, qb, exact, smi)
         probe_launches["exact"] += n_probe
         pq_launches["exact"] += n_pq
@@ -4390,6 +5457,13 @@ def main(argv):
             kernels.append({"name": name, "mode": mode, "route": "cuda",
                             "source": source, "replaces": replaces,
                             "launches": launches[mode], **s})
+    source, replaces = SOURCES["ml_recurrence"]
+    for mode in ("q_learning", "holt_winters"):
+        st = dict(rec_stats[mode]) if rec_stats else {}
+        kernels.append({"name": "ml_recurrence", "mode": mode,
+                        "route": "cuda", "source": source,
+                        "replaces": replaces[mode],
+                        "launches": st.pop("launches", None), **st})
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

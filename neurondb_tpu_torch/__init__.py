@@ -5,26 +5,28 @@ never imports). It keeps the JAX package's module names so each part has
 a findable counterpart, and holds the vector store, the flat, quantized
 flat, IVFFlat, IVF-PQ, HNSW and specialty indexes, BM25 and hybrid
 search, the cross-encoder rerank and text-embedding path, and the ML
-runtime's first families:
+runtime:
 
 - ``ops``: every distance metric, top-k (ties go to the lowest index, as
   ``lax.top_k``'s), the vector math ops (``vector_ops``: elementwise,
   statistics, lexicographic comparison, the FNV-1a content hash, batch
   aggregates), and ``ops.kernels`` with the hand-written CUDA
   kernels of the list-grouped IVF scan, the round-1 probe scan, the
-  IVF-PQ scan and flash attention (``csrc/``), built for ``sm_90a`` at
-  first use;
+  IVF-PQ scan, flash attention and the ML recurrences (Q-learning,
+  Holt-Winters) (``csrc/``), built for ``sm_90a`` at first use;
 - ``types``: the ten quantization formats, padded sparse vectors,
   ``VectorGraph`` (BFS, shortest paths, DFS, PageRank, communities,
   components) and the exotic ``RetrievableText`` / ``VectorPacked``;
 - ``store``: ``VectorStore``, a device table with ids and tombstones;
 - ``ml``: the ML runtime (``api``: ``train`` / ``predict`` /
   ``evaluate`` / ``deploy`` over the ``registry``; ``algorithms``:
-  k-means and mini-batch k-means, linear / ridge / lasso / elastic net /
-  logistic regression, GMM, PCA, DBSCAN, agglomerative clustering, kNN,
-  naive Bayes, SVM and anomaly detection), the retrieval metrics, the
-  WordPiece tokenizer, the BERT and pre-LN encoders with their
-  embedders and cross-encoders, the ViT image encoder, the byte-level
+  every family the JAX package registers: clustering, the linear family,
+  GMM, PCA, kNN, naive Bayes, SVM, the tree ensembles, XGBoost /
+  LightGBM / CatBoost, anomaly detection, time series, the ALS
+  recommender, the MLP and Q-learning; ``mlops``, ``automl``, ``drift``,
+  ``extras`` (topics, LDA, explainability, feature store) and ``gnn``),
+  the retrieval metrics, the WordPiece tokenizer, the BERT and pre-LN
+  encoders with their embedders and cross-encoders, the ViT image encoder, the byte-level
   BPE tokenizer and GPT-2 decode (KV cache, W8A8, int8 KV, sampling);
 - ``index``: ``FlatIndex``, ``QuantizedFlatIndex``, ``IVFFlatIndex``,
   ``PQIndex``, ``IVFPQIndex``, ``HNSWIndex``, the specialty

@@ -8,9 +8,8 @@ ANN, hybrid search and stats. ``Client`` manages collections and serves
 the LLM router (``llm``: ``service.llm.router_from_config``), the
 embedding service (``embeddings``) and RAG pipelines (``rag()``), their
 models on the client's ``device``, and the ML runtime (``train``,
-``predict``, ``evaluate`` through ``ml.api`` on the client's ``device``;
-the algorithm families not ported yet raise ``NotImplementedError``
-naming ROADMAP queue 1 item 15).
+``predict``, ``evaluate`` through ``ml.api`` on the client's ``device``:
+every algorithm the JAX package registers).
 """
 
 from __future__ import annotations

@@ -1,13 +1,12 @@
 """Algorithm dispatch table — registers the ported trainers with the API.
 
-Counterpart of the first families of ``neurondb_tpu/ml/algorithms.py``:
-k-means and mini-batch k-means, the linear family, GMM, PCA, DBSCAN,
-agglomerative clustering, kNN, naive Bayes, SVM (primal, dual and random
-Fourier features) and anomaly detection, with the same names,
-hyperparameters, defaults and model trees. The JAX package's other
-registrations (trees, boosting, time series, recommender, neural network,
-RL) are not ported yet: ``api._resolve`` raises ``NotImplementedError``
-for them. Import side effects only.
+Counterpart of ``neurondb_tpu/ml/algorithms.py``: every family it
+registers (k-means and mini-batch k-means, the linear family, GMM, PCA,
+DBSCAN, agglomerative clustering, kNN, naive Bayes, SVM (primal, dual
+and random Fourier features), the tree ensembles, XGBoost / LightGBM /
+CatBoost, anomaly detection, time series and ARIMA, the ALS
+recommender, the neural network and Q-learning), with the same names,
+hyperparameters, defaults and model trees. Import side effects only.
 """
 
 from __future__ import annotations
@@ -16,12 +15,18 @@ from typing import Dict
 
 import torch
 
+from neurondb_tpu_torch.ml import boosting as BO
 from neurondb_tpu_torch.ml import cluster_extra as CE
 from neurondb_tpu_torch.ml import gmm as GMM
 from neurondb_tpu_torch.ml import kmeans as KM
 from neurondb_tpu_torch.ml import linear as LIN
 from neurondb_tpu_torch.ml import neighbors as NB
+from neurondb_tpu_torch.ml import neural as NN
 from neurondb_tpu_torch.ml import pca as PCA
+from neurondb_tpu_torch.ml import recommender as RC
+from neurondb_tpu_torch.ml import rl as RL
+from neurondb_tpu_torch.ml import timeseries as TS
+from neurondb_tpu_torch.ml import trees as TR
 from neurondb_tpu_torch.ml.api import Trainer, register_algorithm
 from neurondb_tpu_torch.ops.vector_ops import _quantile
 
@@ -235,6 +240,61 @@ register_algorithm(Trainer(
     lambda m, X, y: LIN.classification_metrics(m, X, y, _svm_predict)))
 
 
+# ---- trees ----
+
+def _tree_eval(m, X, y):
+    pred = TR.ensemble_predict(m, X)
+    if bool(m["task_classify"]):
+        return {"accuracy": (pred == y.to(torch.int32)).float().mean()}
+    yv = y.float()
+    mse = ((pred - yv) ** 2).mean()
+    return {"mse": mse,
+            "r2": 1.0 - mse / torch.clamp(yv.var(correction=0), min=1e-30)}
+
+
+register_algorithm(Trainer(
+    "decision_tree",
+    lambda X, y, **hp: TR.decision_tree_fit(X, y, **hp),
+    TR.ensemble_predict, _tree_eval))
+
+register_algorithm(Trainer(
+    "random_forest",
+    lambda X, y, **hp: TR.random_forest_fit(X, y, **hp),
+    TR.ensemble_predict, _tree_eval))
+
+register_algorithm(Trainer(
+    "gradient_boosting",
+    lambda X, y, **hp: TR.gradient_boosting_fit(X, y, **hp),
+    TR.ensemble_predict, _tree_eval))
+
+
+# ---- per-library boosting semantics (ml/boosting.py) ----
+
+_BOOST_PREDICT = {"xgboost": BO.xgboost_predict,
+                  "lightgbm": BO.lightgbm_predict,
+                  "catboost": BO.catboost_predict}
+
+
+def _boost_eval(model, X, y):
+    pred = _BOOST_PREDICT[model["algo"]](model, X)
+    if model["task"] == "classify":
+        return {"accuracy": float((pred == y.to(torch.int32)).float().mean())}
+    y = y.float()
+    p = pred.float().reshape(y.shape)
+    ss = ((y - p) ** 2).sum()
+    st = ((y - y.mean()) ** 2).sum()
+    return {"mse": float(ss / max(len(y), 1)),
+            "r2": float(1.0 - ss / torch.clamp(st, min=1e-12))}
+
+
+for _name, _fit in (("xgboost", BO.xgboost_fit),
+                    ("lightgbm", BO.lightgbm_fit),
+                    ("catboost", BO.catboost_fit)):
+    register_algorithm(Trainer(
+        _name, lambda X, y, _fit=_fit, **hp: _fit(X, y, **hp),
+        _BOOST_PREDICT[_name], _boost_eval))
+
+
 # ---- anomaly detection ----
 
 def _anomaly_train(X, *, method="knn", k=5, threshold=3.0, contamination=0.1):
@@ -261,4 +321,101 @@ def _anomaly_predict(m, X):
 
 register_algorithm(Trainer(
     "anomaly_detection", _anomaly_train, _anomaly_predict,
+    None, task="unsupervised"))
+
+
+# ---- timeseries (series-as-X convention: X is the 1-D series) ----
+
+def _ts_train(X, *, order=4, method="ar", season=12, p=1, d=1, q=1):
+    y = X.float().reshape(-1)
+    if method == "holt_winters":
+        m = TS.holt_winters_fit(y, season=season)
+        m["method"] = "holt_winters"
+    elif method == "arima":
+        m = TS.arima_fit(y, p=p, d=d, q=q)
+        m["method"] = "arima"
+    else:
+        m = TS.ar_fit(y, order=order)
+        m["method"] = "ar"
+        m["tail"] = y[-order:]
+    return m
+
+
+def _ts_predict(m, X):
+    steps = int(X.reshape(-1)[0]) if X.numel() else 8
+    if m["method"] == "holt_winters":
+        return TS.holt_winters_forecast(m, steps=steps)
+    if m["method"] == "arima":
+        return TS.arima_forecast(m, steps=steps)
+    return TS.ar_forecast(m, m["tail"], steps=steps)
+
+
+register_algorithm(Trainer(
+    "timeseries", _ts_train, _ts_predict, None, task="unsupervised"))
+
+register_algorithm(Trainer(
+    "arima",
+    lambda X, **hp: _ts_train(X, method="arima", **hp),
+    _ts_predict, None, task="unsupervised"))
+
+
+# ---- recommender (X = [user, item, rating] triples) ----
+
+def _rec_train(X, *, factors=16, iters=10, l2=0.1, seed=0):
+    t = X.float()
+    users = t[:, 0].long()
+    items = t[:, 1].long()
+    U, I = int(users.max()) + 1, int(items.max()) + 1
+    R = torch.zeros((U, I), device=X.device)
+    M = torch.zeros((U, I), device=X.device)
+    R[users, items] = t[:, 2]
+    M[users, items] = 1.0
+    return RC.als_fit(R, M, factors=factors, iters=iters, l2=l2, seed=seed)
+
+
+def _rec_predict(m, X):
+    t = X.long()
+    return RC.predict_ratings(m)[t[:, 0], t[:, 1]]
+
+
+register_algorithm(Trainer(
+    "recommender", _rec_train, _rec_predict, None, task="unsupervised"))
+
+
+# ---- neural network (aliases mlp / deeplearning / deep_learning in
+# ml/api.py) ----
+
+def _nn_eval(m, X, y):
+    pred = NN.mlp_predict(m, X)
+    if bool(m["classify"]):
+        return {"accuracy": (pred == y.to(torch.int32)).float().mean()}
+    yv = y.float()
+    mse = ((pred - yv) ** 2).mean()
+    return {"mse": mse,
+            "r2": 1.0 - mse / torch.clamp(yv.var(correction=0), min=1e-30)}
+
+
+register_algorithm(Trainer(
+    "neural_network",
+    lambda X, y, **hp: NN.mlp_fit(X, y, **hp),
+    NN.mlp_predict, _nn_eval))
+
+
+# ---- reinforcement learning ----
+
+def _rl_train(X, *, n_states=None, n_actions=None, alpha=0.1, gamma=0.95,
+              epochs=50):
+    t = X.float()
+    ns = int(n_states if n_states is not None
+             else max(float(t[:, 0].max()), float(t[:, 3].max())) + 1)
+    na = int(n_actions if n_actions is not None
+             else float(t[:, 1].max()) + 1)
+    return {"Q": RL.q_learning_fit(t, n_states=ns, n_actions=na,
+                                   alpha=alpha, gamma=gamma, epochs=epochs)}
+
+
+register_algorithm(Trainer(
+    "reinforcement_learning", _rl_train,
+    lambda m, X: m["Q"][X.to(torch.int32).reshape(-1).long()].argmax(1).to(
+        torch.int32),
     None, task="unsupervised"))

@@ -21,11 +21,12 @@ Divergences:
   ``TypeError``, ``KeyError``, ``ZeroDivisionError``), where the JAX
   package swallows any exception: a ``RuntimeError`` (a CUDA launch
   error, ``torch.OutOfMemoryError``) propagates;
-- the JAX package registers further families (trees, boosting, time
-  series, recommender, neural network, RL). Their names and aliases raise
-  ``NotImplementedError`` naming ROADMAP item 15; a name neither package
-  knows raises ``ValueError`` as in the JAX package; ``list_algorithms``
-  returns the ported names only.
+- none in the names: every algorithm the JAX package registers is
+  registered here under the same name, ``list_algorithms`` returns the
+  same list, and each alias resolves to the same trainer (``xgboost``,
+  ``lightgbm`` and ``catboost`` alias ``gradient_boosting``, as in the
+  JAX package, so their own trainers are reached only by a record that
+  names them); an unknown name raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -75,12 +76,6 @@ _ALIASES = {
     "deep_learning": "neural_network",
 }
 
-# Registered by the JAX package, not ported yet (ROADMAP queue 1 item 15).
-NOT_PORTED = frozenset({
-    "decision_tree", "random_forest", "gradient_boosting", "xgboost",
-    "lightgbm", "catboost", "timeseries", "arima", "recommender",
-    "neural_network", "reinforcement_learning"})
-
 
 def register_algorithm(trainer: Trainer) -> Trainer:
     _ALGORITHMS[trainer.name] = trainer
@@ -90,14 +85,10 @@ def register_algorithm(trainer: Trainer) -> Trainer:
 def _resolve(algorithm: str) -> Trainer:
     _ensure_loaded()
     name = _ALIASES.get(algorithm.lower(), algorithm.lower())
-    if name in _ALGORITHMS:
-        return _ALGORITHMS[name]
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"algorithm {algorithm!r} ({name}) is not ported yet "
-            "(ROADMAP queue 1 item 15)")
-    known = ", ".join(sorted(_ALGORITHMS))
-    raise ValueError(f"unknown algorithm {algorithm!r}; known: {known}")
+    if name not in _ALGORITHMS:
+        known = ", ".join(sorted(_ALGORITHMS))
+        raise ValueError(f"unknown algorithm {algorithm!r}; known: {known}")
+    return _ALGORITHMS[name]
 
 
 _loaded = False

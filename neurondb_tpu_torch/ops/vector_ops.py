@@ -15,8 +15,11 @@ Divergences, each for a torch reason:
 - ``vector_median`` / ``vector_percentile`` / ``vector_quantile`` sort
   and interpolate as ``jnp.median`` (midpoint) and ``jnp.percentile`` /
   ``jnp.quantile`` (linear) do, with the weights in f32 as JAX computes
-  them; ``torch.median`` (the lower middle) and ``torch.quantile`` (an
-  input size limit) are not used.
+  them, and the linear blend ``lo * w_lo + hi * w_hi`` rounded as XLA's
+  CPU backend rounds it: one fused multiply-add over the first product
+  (computed exactly in f64, then rounded to f32); ``torch.median`` (the
+  lower middle) and ``torch.quantile`` (an input size limit) are not
+  used.
 - ``vector_argmin`` / ``vector_argmax`` return int64 (torch's index
   dtype), the first extremum as in JAX.
 """
@@ -134,7 +137,10 @@ def _quantile(x: torch.Tensor, q, dim: int = -1,
     if method == "midpoint":
         out = (lo_v + hi_v) * 0.5
     else:
-        out = lo_v * lw.reshape(shape) + hi_v * hw.reshape(shape)
+        # fma(lo, w_lo, hi * w_hi): the product of two f32 values is exact
+        # in f64, so one f64 add and the cast round as the fused op does
+        out = (lo_v.double() * lw.reshape(shape).double()
+               + (hi_v * hw.reshape(shape)).double()).float()
     out = out.to(a.dtype)
     return out[0] if qt.ndim == 0 else out
 

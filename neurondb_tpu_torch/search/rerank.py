@@ -6,8 +6,8 @@ scores (query, doc) pairs with a scorer from ``ml/transformer.py``
 (``CrossEncoder``, ``PretrainedCrossEncoder``), whose attention runs the
 hand-written flash-attention kernel on a card; any callable
 ``scorer(query: str, docs: list[str]) -> np.ndarray`` works. The other
-rerankers are host numpy, as in the JAX package. ``train_ltr`` waits for
-the port of ``ml/linear.py``.
+rerankers are host numpy, as in the JAX package; ``train_ltr`` fits its
+ridge weights with the port's ``ml/linear.py`` on ``config.device``.
 """
 
 from __future__ import annotations
@@ -63,6 +63,21 @@ def rerank_ltr(features: np.ndarray, weights: np.ndarray,
     f = np.asarray(features, np.float32)
     w = np.asarray(weights, np.float32)
     return _order(f @ w, k)
+
+
+def train_ltr(features: np.ndarray, relevance: np.ndarray,
+              l2: float = 1e-3, *, device=None) -> np.ndarray:
+    """Fit pointwise LTR weights by ridge regression on graded relevance
+    (ml_ltr.c:239 train path), on ``device`` (default
+    ``config.device``)."""
+    from neurondb_tpu_torch.ml.api import as_input
+    from neurondb_tpu_torch.ml.linear import linear_regression_fit
+    from neurondb_tpu_torch.config import resolve_device
+    dev = resolve_device(device)
+    model = linear_regression_fit(as_input(features, dev),
+                                  as_input(relevance, dev), l2=l2,
+                                  fit_intercept=False)
+    return model["coef"].cpu().numpy()
 
 
 def rerank_ensemble(rankings: Sequence[Tuple[np.ndarray, np.ndarray]],

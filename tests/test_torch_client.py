@@ -198,15 +198,17 @@ def test_client_delete_last_docs_clears_bm25(rng):
 
 
 def test_client_services_name_their_roadmap_item():
-    """The ML families not ported yet raise naming their item; the ML
-    runtime's ported ones, the LLM router, the embedding service and RAG
-    serve (on the client's device)."""
+    """Every ML family serves through the client, the ones ported last
+    included (random forest, XGBoost's alias, the MLP), as do the LLM
+    router, the embedding service and RAG (on the client's device)."""
     c = Client(device="cpu")
     X = np.random.default_rng(0).standard_normal((20, 2)).astype(np.float32)
     y = X @ np.array([1.0, -2.0], np.float32) + 3.0
-    for algo in ("random_forest", "xgboost", "mlp"):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            c.train("p", algo, X, y)
+    for algo, hp in (("random_forest", {"task": "regress", "n_trees": 3}),
+                     ("xgboost", {"task": "regress", "n_trees": 3}),
+                     ("mlp", {"task": "regress", "epochs": 3})):
+        mid = c.train("p", algo, X, y, hp)
+        assert np.isfinite(c.predict(mid, X[:3])).all()
     mid = c.train("p", "linreg", X, y)
     np.testing.assert_allclose(c.predict(mid, X[:3]), y[:3], atol=1e-3)
     assert c.evaluate(mid, X, y)["r2"] > 0.999

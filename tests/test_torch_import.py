@@ -487,10 +487,11 @@ def test_gpt_int8_matmul_pads_for_int_mm(monkeypatch):
 
 def test_store_and_ml_slice_imports_without_jax():
     """The store, the specialty indexes, validate, tuning, vector ops, the
-    graph and exotic types and the ML runtime load where jax and the JAX
-    package cannot be imported, and load neither; the package exports the
-    JAX ``__init__``'s store and specialty names, and the API registers
-    its algorithms without them."""
+    graph and exotic types and the ML runtime (every family, the
+    recurrence kernel's wrapper) load where jax and the JAX package cannot
+    be imported, and load neither; the package exports the JAX
+    ``__init__``'s store and specialty names, and the API registers all 27
+    of the JAX package's algorithms without them."""
     code = (
         "import sys\n"
         "class Block:\n"
@@ -505,10 +506,14 @@ def test_store_and_ml_slice_imports_without_jax():
         "from neurondb_tpu_torch.types import exotic, graph\n"
         "from neurondb_tpu_torch.ml import (algorithms, api, cluster_extra,\n"
         "                                   gmm, linear, metrics, neighbors,\n"
-        "                                   pca, registry)\n"
+        "                                   pca, registry, trees, boosting,\n"
+        "                                   timeseries, recommender, neural,\n"
+        "                                   rl, drift, mlops, automl, extras,\n"
+        "                                   gnn)\n"
+        "from neurondb_tpu_torch.ops.kernels import ml_recurrence\n"
         "names = ['VectorStore', 'RerankReadyIndex', 'ConsistentIndex']\n"
         "assert all(n in nt.__all__ and hasattr(nt, n) for n in names)\n"
-        "assert len(api.list_algorithms()) == 16\n"
+        "assert len(api.list_algorithms()) == 27\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'neurondb_tpu')))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -516,3 +521,26 @@ def test_store_and_ml_slice_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_recurrence_kernel_wrapper_raises_instead_of_falling_back(no_nvcc):
+    """The ML recurrences' CUDA branch builds csrc/ml_recurrence.cu or
+    raises; it never runs the plain loop (CPU tensors do)."""
+    from neurondb_tpu_torch.ops.kernels import ml_recurrence as MREC
+    before = dict(MREC.LAUNCHES)
+    idx = torch.zeros(3, dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        MREC._q_learning_cuda(idx, idx, torch.zeros(3), idx,
+                              torch.zeros((2, 2)), alpha=0.1, gamma=0.9,
+                              epochs=1)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        MREC._holt_winters_cuda(torch.zeros(30), torch.zeros(()),
+                                torch.zeros(()), torch.zeros(12),
+                                alpha=0.3, beta=0.1, gamma=0.1)
+    assert MREC.LAUNCHES == before
+    Q = MREC.q_learning(idx, idx, torch.ones(3), idx, torch.zeros((2, 2)),
+                        alpha=0.1, gamma=0.9, epochs=1)
+    assert Q.device.type == "cpu" and MREC.LAUNCHES == before
+    with pytest.raises(ValueError, match="several devices"):
+        MREC.q_learning(idx, idx, torch.ones(3, device="meta"), idx,
+                        torch.zeros((2, 2)), alpha=0.1, gamma=0.9, epochs=1)

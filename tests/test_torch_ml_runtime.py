@@ -207,20 +207,15 @@ def test_jax_model_fixture_is_current(tmp_path, monkeypatch):
 # ---------------------------------------------------------------------------
 
 def test_ported_names_and_the_rest_of_the_jax_registry():
-    assert TA.list_algorithms() == PORTED
+    """Every name and alias the JAX package registers resolves to the same
+    trainer here; the families ported last train and resolve too."""
     JA._ensure_loaded()
+    assert TA.list_algorithms() == sorted(JA._ALGORITHMS)
+    assert set(PORTED) < set(TA.list_algorithms())
     for name in JA._ALGORITHMS:
-        if name in PORTED:
-            assert TA._resolve(name).name == name
-        else:
-            with pytest.raises(NotImplementedError, match="item 15"):
-                TA._resolve(name)
-    for alias, target in JA._ALIASES.items():
-        if target in PORTED:
-            assert TA._resolve(alias.upper()).name == target
-        else:
-            with pytest.raises(NotImplementedError, match="item 15"):
-                TA._resolve(alias)
+        assert TA._resolve(name).name == JA._resolve(name).name
+    for alias in JA._ALIASES:
+        assert TA._resolve(alias.upper()).name == JA._resolve(alias).name
     with pytest.raises(ValueError, match="unknown algorithm"):
         TA._resolve("no_such_algorithm")
     with pytest.raises(ValueError, match="unknown algorithm"):
