@@ -246,7 +246,8 @@ own; ROADMAP items 14 and 15):
   JAX defaults (k-means and mini-batch k-means at k 256, GMM at k 64, PCA
   at 32 components with and without whitening, the dual SVM at its
   default sample_cap 8,192; DBSCAN and agglomerative clustering on the
-  first 10,000 rows), each line its train seconds, predict rows/s on
+  first 10,000 rows, the kNN regressor and anomaly detection on the first
+  250,000, ``ML_KNN_ROWS``), each line its train seconds, predict rows/s on
   16,384 rows and its metrics, each model persisted and reloaded to
   predict bit for bit; held to: the f64 normal equations (linear, ridge),
   f64 ``numpy.linalg.eigh`` (PCA eigenvalues), f64 class moments (naive
@@ -257,6 +258,42 @@ own; ROADMAP items 14 and 15):
   log-likelihood above the k-means++ start (GMM); the JAX-format models
   in ``tests/data/jax_registry`` load on the card and predict as the JAX
   package did on the CPU; the phase's seconds and peak memory.
+
+The service layer (``phase_services``), after 7's ``validate_index`` and
+before the store phase, on 5's 1M ``IVFFlatIndex``:
+
+- REST: ``RESTServer(port=0)`` with the index as collection ``sift``,
+  ``enable_batching("sift", nprobe=<5's chosen>)`` (window 10 ms,
+  max_batch 4,096, the int8 wire); 64 client threads, one keep-alive
+  ``http.client`` connection each, send 4,096 JSON ``/api/v1/search``
+  requests and then 4,096 ``/api/v1/search.bin`` requests (k 10, the
+  first 8,192 query rows): requests/s, p50 / p99 latency, batches, mean
+  and max rows a batch and the grouped kernel's launches per wire (must
+  be > 0); every answer's ids equal to one direct int8-wire search of
+  the same 8,192 queries, apart from swaps inside a distance tie at the
+  k boundary (``SVC_TIE_RTOL``), and recall@10 against exact; any
+  answer not 200 fails; 256 binary requests under ``tracing.profile``,
+  whose Chrome trace must name the grouped kernel and the span;
+- MCP: ``initialize``, ``tools/list`` (the JAX package's 86 tools),
+  ``resources/list``, 256 ``tools/call vector_search`` equal to a direct
+  f32 search (ties as above), ``embed_text`` of 64 texts (flash launches
+  > 0), ``device_info`` naming the card;
+- ``AgentRuntime()`` (``LocalProvider`` on the card): three messages, a
+  ``calc`` tool call through ``safeeval``, the memory embedded; a
+  ``QueueWorker`` runs 8 ``embed`` jobs through ``EmbeddingService``;
+- tenancy: a ``Client(device="cuda")`` collection of 100,000 rows behind
+  ``TenantScopedCollection``: an RLS predicate keeps only the ids it
+  names, a QPS quota raises ``QuotaExceeded``;
+- data management on a 1M x 128 f32 ``VectorStore``: a snapshot, 65,536
+  rows added and 1% deleted in place, ``search_as_of`` of 1,024 queries
+  equal to the answers before (ids and distances); a ``ColdTier`` int8
+  round trip of 1,024 rows within the int8 bound; ``vacuum``;
+- the CLI: ``python -m neurondb_tpu_torch devices`` names the card,
+  ``rest --port 0`` answers ``/health``;
+- last, ``rebalance_ivf`` on the index (imbalance and recall@10 before
+  and after; the index is not used after it); the spans'
+  ``tracing.summary()``, which ``prometheus_text()`` must carry, and the
+  phase's seconds and launches, which join the kernels line.
 
 Any failed check ends the run with a non-zero exit. The line before the
 last is the kernels' JSON record; the last line is
@@ -442,6 +479,7 @@ ML_LABEL_SEED = 7
 ML_PREDICT_ROWS = 16_384
 ML_SMALL_ROWS = 10_000      # DBSCAN and agglomerative: the module's scale
 ML_KNN_CHECK = 1024
+ML_KNN_ROWS = 250_000       # knn_regressor and anomaly_detection's table
 ML_PHASE_S = 150
 # about 10x the readings of PR 15's chip runs 4-5 (NVIDIA H100 80GB HBM3,
 # 700 W): linear / ridge 4.97e-6, PCA 3.47e-5, naive Bayes 6.1e-7; a TF32
@@ -499,6 +537,21 @@ PSI_ATOL = 1e-4
 AUTOML_ROWS = 100_000
 AUTOML_TOL = 1e-3           # leaderboard score vs the trainers called directly
 SMEM_ROUND_TRIP_NS = 15     # ~30 cycles at 1.98 GHz: the recurrence's step
+# the service layer (phase_services, on the main path's index)
+SVC_CLIENTS = 64            # REST client threads, one keep-alive connection each
+SVC_REQUESTS = 4096         # requests a wire (JSON, then binary)
+SVC_PROFILED = 256          # binary requests under the profiler
+SVC_MCP_CALLS = 256         # MCP tools/call vector_search
+SVC_EMBED_TEXTS = 64        # MCP embed_text
+SVC_TENANT_ROWS = 100_000   # the tenant's Client collection
+SVC_TENANT_QPS = 5
+SVC_STORE_ADD = 65_536      # rows added after the snapshot
+SVC_COLD = 1024             # rows through the int8 cold tier
+# served vs direct ids: a swap only inside a distance tie at the k
+# boundary, two packed-key roundings at pos_bits 14 (2^(pb-24) each)
+SVC_TIE_RTOL = 2.0 ** -9
+MCP_TOOLS = 86              # the JAX package's MCP tools (tests/test_torch_mcp.py)
+SERVICES_S = 60             # the phase's budget
 HNSW_LEVEL0 = None          # the HNSW phase's 1M x 32 level-0 graph (host)
 ML2_OWN_S = {}              # each family's own train + predict seconds
 ML2_PEAK = [0]              # the largest allocation peak seen before a reset
@@ -4018,6 +4071,414 @@ def _validate_ivf_checks(index, smi):
         fail("validate_index missed a row count off by one")
 
 
+def _served_rows(ids, d, iref, dref, rtol):
+    """Served answers against the direct search's, row by row: (rows
+    equal, rows that differ only inside a distance tie at the k boundary
+    within ``rtol``, rows that differ otherwise)."""
+    same = (ids == iref).all(1)
+    ties = bad = 0
+    for r in np.nonzero(~same)[0]:
+        close = np.allclose(d[r], dref[r], rtol=rtol, atol=1e-6)
+        edge = dref[r, -1] * (1.0 - rtol) - 1e-6
+        out = np.setdiff1d(ids[r], iref[r])
+        gone = np.setdiff1d(iref[r], ids[r])
+        at_edge = (d[r][np.isin(ids[r], out)] >= edge).all() and \
+            (dref[r][np.isin(iref[r], gone)] >= edge).all()
+        if close and at_edge:
+            ties += 1
+        else:
+            bad += 1
+    return int(same.sum()), ties, bad
+
+
+def _rest_load(port, q, wire, clients):
+    """``clients`` threads, each on its own keep-alive connection, send
+    the rows of ``q`` (thread t the rows t, t + clients, ...) to
+    ``/api/v1/search`` (JSON) or ``/api/v1/search.bin``. Returns (wall
+    seconds, ids [n, K], distances [n, K], latencies s [n], statuses)."""
+    import http.client
+    import threading
+    n = len(q)
+    ids = np.full((n, K), -1, np.int64)
+    dist = np.zeros((n, K), np.float32)
+    lat = np.zeros(n)
+    status = np.zeros(n, np.int32)
+    errors = []
+    start = threading.Barrier(clients + 1)
+
+    def client(t):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        try:
+            start.wait(timeout=60)
+            for i in range(t, n, clients):
+                if wire == "json":
+                    path = "/api/v1/search"
+                    body = json.dumps({"collection": "sift", "k": K,
+                                       "vector": q[i].tolist()})
+                else:
+                    path = f"/api/v1/search.bin?collection=sift&k={K}"
+                    body = q[i].tobytes()
+                t0 = time.perf_counter()
+                conn.request("POST", path, body=body)
+                r = conn.getresponse()
+                raw = r.read()
+                lat[i] = time.perf_counter() - t0
+                status[i] = r.status
+                if r.status != 200:
+                    continue
+                if wire == "json":
+                    out = json.loads(raw)
+                    ids[i], dist[i] = out["ids"], out["distances"]
+                else:
+                    ids[i] = np.frombuffer(raw[:8 * K], np.int64)
+                    dist[i] = np.frombuffer(raw[8 * K:], np.float32)
+        except Exception as e:  # noqa: BLE001 — reported, fails the run
+            errors.append(f"client {t}: {type(e).__name__}: {e}")
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(clients)]
+    for th in threads:
+        th.start()
+    start.wait(timeout=60)
+    t0 = time.perf_counter()
+    for th in threads:
+        th.join(timeout=300)
+    wall = time.perf_counter() - t0
+    if errors or any(th.is_alive() for th in threads):
+        fail(f"REST {wire} clients failed: {errors[:3]}")
+    return wall, ids, dist, lat, status
+
+
+def phase_services(index, qb, chosen, exact, smi):
+    """The service layer on the card, around the main path's 1M IVFFlat
+    index: REST search (JSON and binary wires) through the micro-batcher
+    and the int8 wire under concurrent clients, MCP, the agent and a
+    queue worker, tenancy, data management, rebalance, tracing and the
+    CLI. Returns the phase's grouped-kernel and flash-kernel launches."""
+    import torch
+    import neurondb_tpu_torch as nt
+    from neurondb_tpu_torch.client import Client
+    from neurondb_tpu_torch.index.base import quantize_queries_int8
+    from neurondb_tpu_torch.ml.metrics import recall_at_k
+    from neurondb_tpu_torch.ops.kernels import flash_attention as FA
+    from neurondb_tpu_torch.ops.kernels import ivf_scan_grouped as G
+    from neurondb_tpu_torch.service import data_management as DM
+    from neurondb_tpu_torch.service.agent import AgentRuntime
+    from neurondb_tpu_torch.service.embeddings import EmbeddingService
+    from neurondb_tpu_torch.service.mcp import MCPServer
+    from neurondb_tpu_torch.service.rest import RESTServer
+    from neurondb_tpu_torch.service.tenant import (QuotaExceeded,
+                                                   TenantManager, TenantQuota,
+                                                   TenantScopedCollection)
+    from neurondb_tpu_torch.service.workers import QueueWorker
+    from neurondb_tpu_torch.utils import tracing
+    t_phase = time.perf_counter()
+    n, dim = index.n, index.dim
+    q = qb[:2 * SVC_REQUESTS]           # JSON: the first half, binary: the rest
+    gt_rows = exact[np.arange(2 * SVC_REQUESTS) % NQ]
+    # the direct searches the served answers are held to, made before the
+    # phase's launches are counted
+    dref, iref = index.search(quantize_queries_int8(q), k=K, nprobe=chosen)
+    mref_d, mref_i = index.search(qb[:SVC_MCP_CALLS], k=K)
+    tracing.reset()
+    _zero_launches()
+
+    # ---- REST: /api/v1/search and .bin through the micro-batcher ----
+    srv = RESTServer(port=0)
+    try:
+        srv.add_collection("sift", index)
+        srv.enable_batching("sift", nprobe=chosen)
+        bat = srv.batchers["sift"]
+        port = srv.start()
+        for half, wire in enumerate(("json", "bin")):
+            rows = slice(half * SVC_REQUESTS, (half + 1) * SVC_REQUESTS)
+            st0 = dict(bat.stats)
+            g0 = G.LAUNCHES
+            with tracing.trace(f"services.rest_{wire}"):
+                wall, ids, d, lat, status = _rest_load(port, q[rows], wire,
+                                                       SVC_CLIENTS)
+            bad_status = int((status != 200).sum())
+            if bad_status:
+                fail(f"REST {wire}: {bad_status} answers not 200 "
+                     f"(codes {sorted(set(status.tolist()))})")
+            nb = bat.stats["batches"] - st0["batches"]
+            nr = bat.stats["requests"] - st0["requests"]
+            equal, ties, bad = _served_rows(ids, d, iref[rows], dref[rows],
+                                            SVC_TIE_RTOL)
+            log(f"[services] REST {wire}: {SVC_REQUESTS} requests from "
+                f"{SVC_CLIENTS} keep-alive clients in {wall:.3f} s, "
+                f"{SVC_REQUESTS / wall:.1f} requests/s, latency p50 "
+                f"{np.percentile(lat, 50) * 1e3:.3f} ms p99 "
+                f"{np.percentile(lat, 99) * 1e3:.3f} ms; {nb} batches, "
+                f"mean {nr / max(nb, 1):.1f} rows, max "
+                f"{bat.stats['max_rows']} rows; grouped launches "
+                f"{G.LAUNCHES - g0}; ids vs one direct int8-wire search of "
+                f"the same queries: {equal} rows equal, {ties} within a "
+                f"k-boundary tie ({SVC_TIE_RTOL:.1e}), {bad} otherwise; "
+                f"recall@10 vs exact {recall_at_k(ids, gt_rows[rows]):.4f} on "
+                f"{smi}")
+            if bad:
+                fail(f"REST {wire}: {bad} answers differ from the direct "
+                     f"search past a k-boundary tie")
+            if G.LAUNCHES - g0 <= 0 or nr != SVC_REQUESTS:
+                fail(f"REST {wire}: {G.LAUNCHES - g0} grouped launches, "
+                     f"{nr} batched requests of {SVC_REQUESTS}")
+        # ---- tracing: 256 requests under the profiler ----
+        with tempfile.TemporaryDirectory() as tmp:
+            with tracing.profile(tmp):
+                with tracing.trace("services.profiled_rest"):
+                    _, ids, d, _, status = _rest_load(
+                        port, q[:SVC_PROFILED], "bin", 16)
+            with open(os.path.join(tmp, tracing.TRACE_FILE)) as f:
+                events = json.load(f)["traceEvents"]
+        names = {e.get("name", "") for e in events}
+        kern = sorted(nm for nm in names if "grouped_scan" in nm)
+        span = [e for e in events if e.get("name") == "services.profiled_rest"]
+        busy_us = sum(e.get("dur", 0) for e in events
+                      if e.get("cat") == "kernel")
+        wall_us = span[0]["dur"] if span else float("nan")
+        log(f"[services] profile of {SVC_PROFILED} binary requests: "
+            f"{len(events)} trace events, span "
+            f"'services.profiled_rest' {bool(span)} ({wall_us / 1e3:.1f} "
+            f"ms), device kernels busy {busy_us / 1e3:.2f} ms "
+            f"({100 * busy_us / wall_us:.1f}% of the span), grouped kernel "
+            f"events {kern[:1]}")
+        if (status != 200).any() or not kern or \
+                "services.profiled_rest" not in names:
+            fail("the profiled requests' Chrome trace lacks the grouped "
+                 "kernel or the span, or an answer was not 200")
+    finally:
+        srv.stop()
+    rest_launches = G.LAUNCHES
+
+    # ---- MCP ----
+    with tracing.trace("services.mcp"):
+        mcp = MCPServer()
+        mcp.add_collection("sift", index)
+
+        def rpc(method, params=None):
+            out = json.loads(mcp.handle(json.dumps(
+                {"jsonrpc": "2.0", "id": 1, "method": method,
+                 "params": params or {}})))
+            if "error" in out:
+                fail(f"MCP {method} {params and params.get('name')}: "
+                     f"{out['error']}")
+            return out["result"]
+
+        def call(name, args):
+            res = rpc("tools/call", {"name": name, "arguments": args})
+            return json.loads(res["content"][0]["text"])
+
+        init = rpc("initialize")
+        tools = rpc("tools/list")["tools"]
+        resources = rpc("resources/list")["resources"]
+        t0 = time.perf_counter()
+        got = [call("vector_search", {"collection": "sift", "k": K,
+                                      "vector": qb[i].tolist()})
+               for i in range(SVC_MCP_CALLS)]
+        mcp_s = time.perf_counter() - t0
+        fa0 = sum(FA.LAUNCHES.values())
+        emb = np.asarray(call("embed_text", {"texts": [
+            f"document {i} about topic {i % 7}"
+            for i in range(SVC_EMBED_TEXTS)]})["embeddings"])
+        fa_embed = sum(FA.LAUNCHES.values()) - fa0
+        dev = call("device_info", {})
+    m_equal, m_ties, m_bad = _served_rows(
+        np.asarray([g["ids"] for g in got]),
+        np.asarray([g["distances"] for g in got], np.float32),
+        mref_i, mref_d, SVC_TIE_RTOL)
+    log(f"[services] MCP {init['serverInfo']['name']} protocol "
+        f"{init['protocolVersion']}: {len(tools)} tools (the JAX "
+        f"package's {MCP_TOOLS}), {len(resources)} resources; "
+        f"{SVC_MCP_CALLS} tools/call vector_search in {mcp_s:.3f} s: "
+        f"{m_equal} rows equal to one direct f32 search, {m_ties} within a "
+        f"k-boundary tie, {m_bad} otherwise; embed_text of "
+        f"{SVC_EMBED_TEXTS} texts {emb.shape}, flash launches {fa_embed}; "
+        f"device_info {dev}")
+    if len(tools) != MCP_TOOLS or m_bad or fa_embed <= 0 or \
+            emb.shape != (SVC_EMBED_TEXTS, 256) or \
+            dev["devices"][:1] != [torch.cuda.get_device_name(0)]:
+        fail("MCP: tool count, vector_search ids, embed_text's flash "
+             "launches or device_info wrong")
+
+    # ---- the agent and a queue worker ----
+    with tracing.trace("services.agent"):
+        rt = AgentRuntime()
+        agent = rt.create_agent("chip", system_prompt="answer briefly")
+        sess = rt.create_session(agent.agent_id)
+        msgs = [rt.execute(sess.session_id, text) for text in (
+            "hello there", 'compute {"tool": "calc", "input": '
+            '{"expression": "6*7"}}', "thanks")]
+        calls = [c for m in msgs for c in m.tool_calls]
+        worker = QueueWorker()
+        svc = EmbeddingService()
+        worker.register("embed", lambda p: svc.embed_batch(p["texts"]))
+        jobs = [worker.enqueue("embed", {"texts": [f"job {j} text {i}"
+                                                   for i in range(16)]})
+                for j in range(8)]
+        worker.start()
+        try:
+            worker.drain(timeout=60.0)
+        finally:
+            worker.stop()
+        states = [worker.status(j).status for j in jobs]
+    log(f"[services] agent: {len(rt.history(sess.session_id))} messages in "
+        f"the session, calc calls {[c['result'] for c in calls]}, memory "
+        f"{rt.memory._vecs[agent.agent_id].shape}; queue worker: 8 embed "
+        f"jobs {states}")
+    if not calls or any(c["result"] != "42" for c in calls) or \
+            states != ["done"] * 8 or \
+            rt.memory._vecs[agent.agent_id].shape[0] != 3:
+        fail("agent calc tool, agent memory or the embed jobs wrong")
+
+    # ---- tenancy over a Client collection on the card ----
+    with tracing.trace("services.tenancy"):
+        col = Client(device="cuda").create_collection("tenant", dim)
+        tm = TenantManager()
+        tm.set_quota("acme", TenantQuota(max_vectors=2 * SVC_TENANT_ROWS,
+                                         max_qps=SVC_TENANT_QPS))
+        scoped = TenantScopedCollection(col, tm, "acme")
+        scoped.add(index._x[:SVC_TENANT_ROWS])
+        plain = col.search(qb[0], k=50)
+        tm.set_rls_policy("acme", lambda i, md: i % 2 == 0)
+        res = scoped.search(qb[0], k=50)
+        # the quota's window is one second: twice its count of searches
+        # cross at most one window edge
+        raised = False
+        for _ in range(2 * (SVC_TENANT_QPS + 1)):
+            try:
+                scoped.search(qb[0], k=50)
+            except QuotaExceeded:
+                raised = True
+                break
+    want = [r["id"] for r in plain if r["id"] % 2 == 0]
+    log(f"[services] tenancy: {SVC_TENANT_ROWS} rows behind quotas, RLS keeps "
+        f"{len(res)} of {len(plain)} ids (even ids only: "
+        f"{[r['id'] for r in res] == want}), QPS quota "
+        f"{SVC_TENANT_QPS} raised QuotaExceeded: {raised}")
+    if [r["id"] for r in res] != want or not raised:
+        fail("tenancy: the RLS predicate or the QPS quota did not hold")
+
+    # ---- data management on a 1M x 128 f32 store ----
+    with tracing.trace("services.data_management"):
+        store = nt.VectorStore(dim, device="cuda")
+        for s in range(0, n, STORE_BATCH):
+            store.add(index._x[s:s + STORE_BATCH])
+        tt = DM.TimeTravelStore(store)
+        t0 = time.perf_counter()
+        tt.snapshot("before")
+        snap_s = time.perf_counter() - t0
+        qs = qb[:STORE_NQ]
+        d0, i0 = tt.search_as_of("before", qs, k=K)
+        rng = np.random.default_rng(17)
+        # new rows right beside the queries, so the present answers move
+        store.add(np.repeat(qs, SVC_STORE_ADD // STORE_NQ, axis=0)
+                  + 0.01 * rng.standard_normal(
+                      (SVC_STORE_ADD, dim)).astype(np.float32))
+        dropped = rng.choice(n, n // 100, replace=False)
+        store.delete(dropped)
+        d1, i1 = tt.search_as_of("before", qs, k=K)
+        dnow, inow = store.search(qs, k=K)
+        cold = DM.ColdTier("int8")
+        ids_c = np.setdiff1d(np.arange(n), dropped)[:SVC_COLD]
+        orig = store.get(ids_c)
+        cold.demote(store, ids_c)
+        cold.restore(store, ids_c)
+        back = store.get(ids_c)
+        bound = np.abs(orig).max(1, keepdims=True) / 127.0 / 2 + 1e-6
+        cold_ok = bool((np.abs(back - orig) <= bound).all())
+        vac = DM.vacuum(store)
+        del store, tt
+        torch.cuda.empty_cache()
+    log(f"[services] data management: snapshot of {n} rows in "
+        f"{snap_s:.3f} s; after adding {SVC_STORE_ADD} rows and deleting "
+        f"1% in place, search_as_of of {STORE_NQ} queries equal to before "
+        f"(ids {np.array_equal(i0, i1)}, distances "
+        f"{np.array_equal(d0, d1)}); the present differs in "
+        f"{int((inow != i0).any(1).sum())} rows; ColdTier int8 demote / "
+        f"restore of {SVC_COLD} rows within the int8 bound: {cold_ok}; "
+        f"vacuum {vac}")
+    if not (np.array_equal(i0, i1) and np.array_equal(d0, d1)) or \
+            not cold_ok or not vac["ran"] or (inow == i0).all():
+        fail("data management: search_as_of moved, or the cold tier or "
+             "vacuum failed")
+
+    # ---- CLI: the two commands' interpreters start together ----
+    with tracing.trace("services.cli"):
+        env = dict(os.environ, PYTHONPATH=ROOT)
+        devices = subprocess.Popen(
+            [sys.executable, "-m", "neurondb_tpu_torch", "devices"],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        proc = subprocess.Popen([sys.executable, "-m", "neurondb_tpu_torch",
+                                 "rest", "--port", "0"], cwd=ROOT, env=env,
+                                stdout=subprocess.PIPE, text=True)
+        import threading
+        watchdog = threading.Timer(120.0, proc.kill)   # a silent server
+        watchdog.start()
+        try:
+            line = proc.stdout.readline().strip()
+            cli_port = int(line.rsplit(":", 1)[1])
+            import urllib.request
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{cli_port}/health", timeout=30) as r:
+                health = json.loads(r.read())
+        finally:
+            watchdog.cancel()
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+            try:
+                dev_out, _ = devices.communicate(timeout=120)
+            except subprocess.TimeoutExpired:
+                devices.kill()
+                dev_out, _ = devices.communicate(timeout=30)
+    log(f"[services] CLI: devices -> {dev_out.strip()!r} (rc "
+        f"{devices.returncode}); rest -> {line!r}, /health {health}")
+    if devices.returncode or torch.cuda.get_device_name(0) not in dev_out \
+            or health != {"status": "ok"}:
+        fail("CLI: devices did not name the card or rest did not answer")
+
+    # ---- rebalance the main path's index (not used after this) ----
+    from neurondb_tpu_torch.index.validate import validate_index
+    with tracing.trace("services.rebalance"):
+        r_before = recall_at_k(index.search(qb[:NQ], k=K, nprobe=chosen)[1],
+                               exact)
+        t0 = time.perf_counter()
+        rep = DM.rebalance_ivf(index, imbalance_threshold=0.0)
+        torch.cuda.synchronize()
+        reb_s = time.perf_counter() - t0
+        r_after = recall_at_k(index.search(qb[:NQ], k=K, nprobe=chosen)[1],
+                              exact)
+        valid = validate_index(index)["valid"]
+    log(f"[services] rebalance_ivf (k-means over all {n} rows, seed + 1) "
+        f"in {reb_s:.2f} s: imbalance {rep['imbalance_before']:.3f} -> "
+        f"{rep['imbalance_after']:.3f}, recall@10 at nprobe {chosen} vs "
+        f"exact {r_before:.4f} -> {r_after:.4f}; validate_index after: "
+        f"valid {valid}")
+    if not rep["ran"] or not valid:
+        fail("rebalance_ivf did not run or left an invalid index")
+
+    summ = tracing.summary()
+    prom = tracing.prometheus_text()
+    log(f"[services] spans: {summ}")
+    if not all(f'span="{row["span"]}"' in prom for row in summ) or \
+            len(summ) < 7:
+        fail("tracing: prometheus_text lacks a span")
+    flash = dict(FA.LAUNCHES)
+    log(f"[services] phase in {time.perf_counter() - t_phase:.1f} s (budget "
+        f"{SERVICES_S} s): grouped launches {G.LAUNCHES} ({rest_launches} "
+        f"in the REST part), flash launches {flash} on {smi}")
+    if G.LAUNCHES <= 0 or sum(flash.values()) <= 0:
+        fail("the services phase made no grouped or no flash launch")
+    return G.LAUNCHES, flash
+
+
 def _hnsw_validate_and_graph(index, smi):
     """validate_index on the 1M HNSWIndex (and a planted self loop), then
     its level-0 adjacency as a VectorGraph on the card: BFS from the entry
@@ -4119,8 +4580,12 @@ def _ml_cases(x, small, y_reg, y_bin, y_mc):
     """(label, algorithm, hyperparameters, X, y): every ported algorithm
     at its JAX defaults, apart from k-means (k 256), GMM (k 64) and PCA
     (32 components); the SVM's dual solver at its default sample_cap and
-    its random-feature solver at a gamma scaled to the data."""
+    its random-feature solver at a gamma scaled to the data. The kNN
+    classifier trains on the whole table; the kNN regressor and anomaly
+    detection on its first ML_KNN_ROWS rows (each 1M-row fit is a 1M x 1M
+    scan)."""
     gamma = float(1.0 / (x.shape[1] * x.var()))
+    xk = x[:ML_KNN_ROWS]
     return [
         ("kmeans", "kmeans", {"k": 256}, x, None),
         ("minibatch_kmeans", "minibatch_kmeans", {"k": 256}, x, None),
@@ -4138,8 +4603,8 @@ def _ml_cases(x, small, y_reg, y_bin, y_mc):
         ("svm dual", "svm", {"solver": "dual"}, x, y_bin),
         ("svm rff", "svm", {"solver": "rff", "gamma": gamma}, x, y_bin),
         ("knn_classifier", "knn_classifier", {}, x, y_mc),
-        ("knn_regressor", "knn_regressor", {}, x, y_reg),
-        ("anomaly_detection", "anomaly_detection", {}, x, None),
+        ("knn_regressor", "knn_regressor", {}, xk, y_reg),
+        ("anomaly_detection", "anomaly_detection", {}, xk, None),
         ("dbscan", "dbscan", {}, small, None),
         ("dbscan eps 17", "dbscan", {"eps": 17.0}, small, None),
         ("hierarchical", "hierarchical", {}, small, None),
@@ -4190,7 +4655,9 @@ def phase_ml(x, qb, smi):
                                                    y_mc):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                mid = client.train("chip", algo, X, y, hp)
+                # a cut table trains on the first rows of the target
+                mid = client.train("chip", algo, X,
+                                   None if y is None else y[:len(X)], hp)
                 train_s = time.perf_counter() - t0
                 rec = MR.get_registry().get(mid)
                 yp = None if y is None else y[rows]
@@ -4317,26 +4784,33 @@ def _ml_checks(x, qb, models, y_reg, y_bin, y_mc, bayes_mc, client):
     del x_dev
     torch.cuda.empty_cache()
     # kNN: votes and inverse-distance weights from FlatIndex's neighbours
+    # over each model's table (the regressor's: the first ML_KNN_ROWS)
     q = qb[:ML_KNN_CHECK]
-    flat = nt.FlatIndex(x, metric="l2", device="cuda")
-    fd, fi = flat.search(q, k=6)
-    del flat
-    torch.cuda.empty_cache()
-    tie = np.abs(fd[:, 4] - fd[:, 5]) <= SH_FLAT_TIE_RTOL * fd[:, 5]
+    near = {}
+    for rows_ in (n, ML_KNN_ROWS):
+        flat = nt.FlatIndex(x[:rows_], metric="l2", device="cuda")
+        fd, fi = flat.search(q, k=6)
+        near[rows_] = (fd, fi, np.abs(fd[:, 4] - fd[:, 5])
+                       <= SH_FLAT_TIE_RTOL * fd[:, 5])
+        del flat
+        torch.cuda.empty_cache()
+    fd, fi, tie = near[n]
     votes = np.stack([np.bincount(r, minlength=10) for r in y_mc[fi[:, :5]]])
     want_cls = votes.argmax(1)
+    got_cls = client.predict(models["knn_classifier"][0], q)
+    bad_cls = (got_cls != want_cls) & ~tie
+    fd, fi, tie_r = near[ML_KNN_ROWS]
     wgt = 1.0 / np.maximum(fd[:, :5].astype(np.float64), 1e-6)
     want_reg = (y_reg[fi[:, :5]] * wgt).sum(1) / wgt.sum(1)
-    got_cls = client.predict(models["knn_classifier"][0], q)
     got_reg = client.predict(models["knn_regressor"][0], q)
-    bad_cls = (got_cls != want_cls) & ~tie
     rel = np.abs(got_reg - want_reg) / np.maximum(np.abs(want_reg), 1e-3)
-    bad_reg = (rel > KNN_RTOL) & ~tie
+    bad_reg = (rel > KNN_RTOL) & ~tie_r
     log(f"[ml] knn on {ML_KNN_CHECK} rows vs FlatIndex's exact neighbours: "
-        f"classifier {int((got_cls != want_cls).sum())} differ, "
-        f"{int(bad_cls.sum())} away from a 5th/6th distance tie; regressor "
-        f"max relative error {float(rel[~tie].max()):.3e} (bar "
-        f"{KNN_RTOL:.0e}); {int(tie.sum())} rows at a tie")
+        f"classifier ({n} rows) {int((got_cls != want_cls).sum())} differ, "
+        f"{int(bad_cls.sum())} away from a 5th/6th distance tie "
+        f"({int(tie.sum())} rows at a tie); regressor ({ML_KNN_ROWS} rows) "
+        f"max relative error {float(rel[~tie_r].max()):.3e} (bar "
+        f"{KNN_RTOL:.0e}; {int(tie_r.sum())} rows at a tie)")
     if bad_cls.any() or bad_reg.any():
         fail("kNN predictions differ from FlatIndex's neighbours")
     # accuracy bars: Bayes-optimal accuracy of the labels' noise, less a
@@ -5421,6 +5895,7 @@ def main(argv):
     probe_launches = {"exact": None}
     rec_stats = None
     if not kernels_only:
+        from neurondb_tpu_torch import get_config
         index, qb, chosen, flat_launches, x, gt, exact = phase_main()
         _profile(f"profile nprobe {chosen} batch {BATCH}",
                  lambda: index.search(qb, k=K, nprobe=chosen))
@@ -5428,6 +5903,8 @@ def main(argv):
                                                      exact)}
         phase_save_load(index, qb, chosen)
         _validate_ivf_checks(index, smi)
+        svc_grouped, svc_flash = phase_services(index, qb, chosen, exact, smi)
+        flat_launches[get_config().ivf_select] += svc_grouped
         del index
         torch.cuda.empty_cache()
         phase_store(x, qb, smi)
@@ -5436,7 +5913,6 @@ def main(argv):
         pq_launches = phase_ivfpq(x)
         phase_quantized(x, qb, exact, smi)
         # the hybrid ANN takes the default selection (packed at 200k rows)
-        from neurondb_tpu_torch import get_config
         flat_launches[get_config().ivf_select] += phase_hybrid(x, smi)
         rec_stats = phase_ml(x, qb, smi)
         n_probe, n_pq, n_grouped, sh_mode = phase_sharded(x, qb, exact, smi)
@@ -5446,6 +5922,8 @@ def main(argv):
         del x
         flash_launches = phase_rerank()
         flash_launches["bf16"] += phase_generate(smi)
+        for mode, n in svc_flash.items():
+            flash_launches[mode] += n
     kernels = []
     for name, stats, launches in (
             ("ivf_grouped_scan", flat_stats, flat_launches),

@@ -412,7 +412,7 @@ class IVFFlatIndex(BaseIndex):
                 nprobe_pad=max(npad, nprobe), qt=cfg.ivf_qt,
                 pos_bits=pos_bits, block_min=block_min)
         if out == "device":
-            if self._spill or self._host_id_map is not None or single:
+            if single or not self.device_out_ok():
                 raise ValueError("device output requires a batch query, "
                                  "no spill buffer, and int32 ids")
             return vals, ids
@@ -422,6 +422,12 @@ class IVFFlatIndex(BaseIndex):
         if self._spill:
             vals, ids = self._merge_spill(q, k, vals, ids)
         return (vals[0], ids[0]) if single else (vals, ids)
+
+    def device_out_ok(self) -> bool:
+        """Whether a batch search may return device tensors
+        (``out="device"``): no spill buffer and int32 external ids. The
+        micro-batcher reads it before each call."""
+        return not self._spill and self._host_id_map is None
 
     def _merge_spill(self, q: torch.Tensor, k: int, vals, ids):
         sv = np.concatenate([v for v, _ in self._spill])

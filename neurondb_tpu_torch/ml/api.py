@@ -26,7 +26,13 @@ Divergences:
   same list, and each alias resolves to the same trainer (``xgboost``,
   ``lightgbm`` and ``catboost`` alias ``gradient_boosting``, as in the
   JAX package, so their own trainers are reached only by a record that
-  names them); an unknown name raises ``ValueError``.
+  names them); an unknown name raises ``ValueError``;
+- ``predict`` and ``evaluate`` take a record's trainer by the exact name
+  it was registered under before the aliases (``_record_trainer``): the
+  JAX package resolves the record's name through the aliases first, so a
+  model its registry holds as ``xgboost`` (``tests/data/
+  jax_registry_ml2``) predicts through ``gradient_boosting`` there and
+  fails.
 """
 
 from __future__ import annotations
@@ -158,9 +164,16 @@ def train(project: str, algorithm: str, X, y=None,
     return get_registry().register(project, t.name, model, hp, metrics)
 
 
+def _record_trainer(rec) -> Trainer:
+    """The trainer a registry record names: its exact name first, then
+    the aliases."""
+    _ensure_loaded()
+    return _ALGORITHMS.get(rec.algorithm) or _resolve(rec.algorithm)
+
+
 def predict(model_id: int, X, *, device=None) -> np.ndarray:
     rec = get_registry().get(model_id)
-    t = _resolve(rec.algorithm)
+    t = _record_trainer(rec)
     dev = resolve_device(device)
     out = t.predict(tree_to(rec.model, dev), as_input(X, dev))
     return out.cpu().numpy() if isinstance(out, torch.Tensor) else \
@@ -170,7 +183,7 @@ def predict(model_id: int, X, *, device=None) -> np.ndarray:
 def evaluate(model_id: int, X, y=None, *,
              device=None) -> Dict[str, float]:
     rec = get_registry().get(model_id)
-    t = _resolve(rec.algorithm)
+    t = _record_trainer(rec)
     if t.evaluate is None:
         raise ValueError(f"{rec.algorithm} has no evaluator")
     dev = resolve_device(device)

@@ -1,8 +1,11 @@
-"""Services: the LLM gateway and the embedding service.
+"""Service layer: LLM gateway, embeddings, REST API, MCP server, workers.
 
-The counterparts of ``neurondb_tpu/service/llm.py`` and ``embeddings.py``;
-REST, MCP, the agent, the workers and tenancy wait for ROADMAP queue 1
-item 16.
+The counterpart of ``neurondb_tpu/service``: the LLM router, the
+embedding service, the agent runtime, the REST server with its
+micro-batcher and WebSocket route, the MCP server with its middleware
+and extra tools, metrics, tenancy, the background workers, data
+management and the ONNX gateway, all over the port's engine on
+``config.device``.
 """
 
 from neurondb_tpu_torch.service.llm import LLMRouter, LLMCache  # noqa: F401

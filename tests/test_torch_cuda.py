@@ -993,3 +993,45 @@ def test_client_rag_on_card(dev):
     assert rag._index._vecs.device.type == "cuda"
     assert rag.retrieve("zeta eta", k=1, weight=0.0)[0]["doc_id"] == 1
     assert c.embeddings.embed_text("x").shape == (256,)
+
+
+def test_rest_search_route_on_the_card(dev):
+    """``/api/v1/search`` and ``.bin`` through the micro-batcher (int8
+    wire) over an IVFFlat index on the card: every answer finds its own
+    row, and the grouped kernel ran."""
+    import concurrent.futures as cf
+    import json
+    import urllib.request
+    from neurondb_tpu_torch.service.rest import RESTServer
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((20000, 64)).astype(np.float32)
+    idx = IVFFlatIndex(x, nlists=64, device="cuda")
+    srv = RESTServer(port=0)
+    srv.add_collection("c", idx)
+    srv.enable_batching("c", nprobe=8)
+    port = srv.start()
+
+    def one(i):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/api/v1/search",
+            data=json.dumps({"collection": "c", "vector": x[i].tolist(),
+                             "k": 5}).encode())
+        with urllib.request.urlopen(req, timeout=30) as r:
+            ids_json = json.loads(r.read())["ids"]
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/api/v1/search.bin?collection=c&k=5",
+            data=x[i].tobytes())
+        with urllib.request.urlopen(req, timeout=30) as r:
+            ids_bin = np.frombuffer(r.read()[:40], np.int64).tolist()
+        return ids_json, ids_bin
+
+    try:
+        before = G.LAUNCHES
+        with cf.ThreadPoolExecutor(16) as ex:
+            res = list(ex.map(one, range(64)))
+        assert G.LAUNCHES > before
+        for i, (a, b) in enumerate(res):
+            assert a[0] == i and a == b
+        assert srv.batchers["c"].stats["batches"] < 128
+    finally:
+        srv.stop()

@@ -544,3 +544,76 @@ def test_recurrence_kernel_wrapper_raises_instead_of_falling_back(no_nvcc):
     with pytest.raises(ValueError, match="several devices"):
         MREC.q_learning(idx, idx, torch.ones(3, device="meta"), idx,
                         torch.zeros((2, 2)), alpha=0.1, gamma=0.9, epochs=1)
+
+
+SERVICE_MODULES = (
+    "utils", "utils.tracing", "utils.safeeval", "service.metrics",
+    "service.batcher", "service.agent", "service.websocket", "service.rest",
+    "service.mcp_middleware", "service.mcp", "service.mcp_tools_extra",
+    "service.tenant", "service.workers", "service.data_management",
+    "service.onnx_runtime", "__main__")
+
+_BLOCK_JAX = (
+    "import sys\n"
+    "class Block:\n"
+    "    def find_spec(self, name, path=None, target=None):\n"
+    "        if name.split('.')[0] in ('jax', 'neurondb_tpu'):\n"
+    "            raise ImportError(name)\n"
+    "sys.meta_path.insert(0, Block())\n")
+
+
+def test_service_layer_imports_without_jax():
+    """The service layer's modules (a counterpart of each of the JAX
+    package's) are among those the walk above imports, and each loads in
+    a fresh interpreter where jax and the JAX package cannot be
+    imported."""
+    import pkgutil
+    import neurondb_tpu_torch as p
+    walked = {m.name for m in pkgutil.walk_packages(p.__path__,
+                                                    p.__name__ + ".")}
+    want = {f"neurondb_tpu_torch.{m}" for m in SERVICE_MODULES}
+    assert want <= walked, want - walked
+    for m in SERVICE_MODULES:
+        assert (PKG / (m.replace(".", "/") + ".py")).exists() or \
+            (PKG / m / "__init__.py").exists()
+    code = _BLOCK_JAX + (
+        "import importlib\n"
+        f"for m in {SERVICE_MODULES!r}:\n"
+        "    importlib.import_module('neurondb_tpu_torch.' + m)\n"
+        "from neurondb_tpu_torch.service.mcp import MCPServer\n"
+        "print(len(MCPServer()._tools))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["86"]
+
+
+def _cli(args):
+    code = _BLOCK_JAX + (
+        "import runpy\n"
+        f"sys.argv = ['neurondb_tpu_torch'] + {args!r}\n"
+        "runpy.run_module('neurondb_tpu_torch', run_name='__main__')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    return subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_cli_config_and_algorithms_without_jax():
+    import json
+    from neurondb_tpu_torch.ml.api import list_algorithms
+    out = _cli(["config"])
+    assert out.returncode == 0, out.stderr
+    cfg = json.loads(out.stdout)
+    assert cfg["device"] == "cuda" and cfg["prometheus_port"] == 9187
+    out = _cli(["algorithms"])
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == list_algorithms()
+
+
+def test_cli_devices_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    out = _cli(["devices"])
+    assert out.returncode != 0
+    assert out.stdout == "" and "no CUDA device" in out.stderr
