@@ -12,20 +12,22 @@ each print their own lines:
 2. build: compiles the CUDA kernels from ``neurondb_tpu_torch/csrc``, one
    nvcc per source, all started together; prints ptxas registers and
    spills, kept beside each library, so a cached build prints them too;
-3. flat kernel against plain: the ptxas registers and spills of each
-   instantiation of ``csrc/ivf_scan_grouped.cu`` (bf16 store, tensor
-   cores: a spill fails the run) and ``csrc/ivf_scan_grouped_f32.cu`` (f32
-   store, FMA: its blockmin spill is printed, an open item of the
-   roadmap); ``grouped_probe_scan``'s CUDA kernel
-   against its plain torch version on the same card tensors, on a ragged
-   bf16 CSR layout (list lengths 0, 3, 31, 1024, 1025, 2500, ...), for qt
-   in {16, 32, 64}, k in {10, 100, 1024}, sqeuclidean and ip, in the
-   exact, packed and blockmin selection modes, and an all-sentinel tile
-   set; bit for bit on integer-valued rows and queries (every mode, kp
-   10, 100, 1024 at D 128, 200, 13; kp 10 and 1024 at D 384, 768, 1024,
-   which stage 128-dim slabs); then each mode timed at the headline
-   shapes (16,384 queries, nprobe 8, nlists 1024, 1M rows) beside its
-   bound;
+3. flat kernel against plain: the ptxas registers and spills of each of
+   the 12 instantiations of ``csrc/ivf_scan_grouped.cu`` (bf16 and f32
+   store x exact, packed, blockmin x lists in registers or in shared
+   memory: a spill fails the run); ``grouped_probe_scan``'s CUDA kernel
+   against its plain torch version on the same card tensors, for each
+   store (bf16 products; f32: 3xTF32, held to rtol 1e-4 plus
+   ``F32_TERMS_TOL`` of |q|^2 + |x|^2), on a ragged CSR layout (list
+   lengths 0, 3, 31, 1024, 1025, 2500, ...), for qt in {16, 32, 64}, k in
+   {10, 100, 1024}, sqeuclidean and ip, in the exact, packed and blockmin
+   selection modes, and an all-sentinel tile set (on the f32 store every
+   other tile's queries, and some headline tiles', are rows of the tile's
+   own list, d ~ 0, their reading printed beside its limit); bit for bit on
+   integer-valued rows and queries (each store, every mode, kp 10, 100,
+   1024 at D 128, 200, 13; kp 10 and 1024 at D 384, 768, 1024, which stage
+   slabs); then each store and mode timed at the headline shapes (16,384
+   queries, nprobe 8, nlists 1024, 1M rows) beside its bound;
 4. PQ kernel against plain: both entries of ``csrc/ivfpq_scan.cu``, the
    fused one (``grouped_pq_scan_fused``: tables built in shared memory,
    live slots only) and the table-fed one (``grouped_pq_scan``), against
@@ -47,7 +49,12 @@ each print their own lines:
    selection, QPS at the smallest nprobe whose recall@10 reaches 0.95,
    the int8 wire, one probe-everything search (the exact route); then
    recall@10, QPS (the three modes timed in turns) and kernel launches
-   for each selection mode (exact, packed, blockmin) at that nprobe;
+   for each selection mode (exact, packed, blockmin) at that nprobe; then
+   the same index built on the f32 store (``configure(store_dtype=
+   "float32")``, restored after): recall@10 of both stores against
+   ``FlatIndex`` and the committed ground truth at that nprobe (the f32
+   store's may not fall below the bf16 store's), QPS of both in turns,
+   the device memory each index holds, the f32 store's grouped launches;
 6. profile: one IVFFlat search at that nprobe under ``torch.profiler``;
 7. save/load: an IVFFlat round trip that must return identical ids;
 8. IVF-PQ main path, the protocol of ``scripts/bench_ivfpq.py``: 1,024
@@ -323,7 +330,7 @@ RECALL_BAR = 0.95
 PQ_BATCH, PQ_NQ = 8192, 1024
 PQ_SWEEP = ((8, 8), (8, 16), (16, 16), (16, 24))
 SAVE_ROWS = 100_000       # the IVF-PQ save/load round trip's index
-KERNELS = ("ivf_scan_grouped", "ivf_scan_grouped_f32", "ivfpq_scan",
+KERNELS = ("ivf_scan_grouped", "ivfpq_scan",
            "flash_attention", "ivf_probe_scan", "ml_recurrence")
 # flash kernel vs plain: f32 sums in another order; with bf16 products a
 # p within f32 noise of a rounding boundary may round one bf16 step
@@ -688,6 +695,22 @@ def _compare(kd, ki, pd, pi, label, rtol=RTOL, atol=ATOL):
     return float((kd_l - pd_l).abs().max()) if kd_l.numel() else 0.0
 
 
+def _atol(qpad, vecs, rows, qt):
+    """The grouped kernel's absolute tolerance against its plain version
+    for each output entry (rows [T, qt, n]): ATOL on the bf16 store; on
+    the f32 store (3xTF32 products) ``G.F32_TERMS_TOL`` of |q|^2 + |x|^2,
+    the scale of the rounding of |q|^2 + |x|^2 - 2 q.x (0 where empty)."""
+    import torch
+    from neurondb_tpu_torch.ops.kernels import ivf_scan_grouped as G
+    if vecs.dtype == torch.bfloat16:
+        return ATOL
+    T, _, n = rows.shape
+    qf = qpad.float().reshape(T, qt, 1, -1)
+    xsq = vecs.float().pow(2).sum(-1)
+    terms = (qf * qf).sum(-1) + xsq[rows.clamp(min=0).long()]
+    return torch.where(rows >= 0, G.F32_TERMS_TOL * terms, 0.0)
+
+
 def _row_dists(qpad, vecs, rows, metric, qt):
     """The plain version's distance of every live output row (q rounded to
     the store type, f32 products), in output order."""
@@ -704,26 +727,66 @@ def _row_dists(qpad, vecs, rows, metric, qt):
                        min=0.0)
 
 
+def _self_queries(qpad, vecs, toff, tcnt, qt, every):
+    """qpad with the queries of every ``every``-th live tile replaced by
+    rows of the tile's own list (d = 0 at its own row, where |q|^2 + |x|^2
+    - 2 q.x cancels). Returns (qpad, those tiles)."""
+    import torch
+    tiles = torch.nonzero(tcnt > 0).flatten()[::every]
+    rows = toff[tiles, None].long() + (
+        torch.arange(qt, device=qpad.device) % tcnt[tiles, None].long())
+    D = qpad.shape[1]
+    q = qpad.view(-1, qt, D).index_put((tiles,), vecs[rows].float())
+    return q.view(-1, D), tiles
+
+
+def _self_reading(kd, pd, atol, rtol, tiles):
+    """(largest |kernel - plain| / its limit, that |kernel - plain|, that
+    limit) over the live entries of ``tiles``; limit = atol + rtol
+    |plain| (the checks' own bound)."""
+    import torch
+    kp = kd.shape[-1]
+    k, p = kd[tiles], pd[tiles][..., :kp]
+    at = torch.as_tensor(atol, dtype=p.dtype, device=p.device)
+    at = at[tiles][..., :kp] if at.ndim else at.expand_as(p)
+    live = p < 1e30
+    err = (k - p).abs()[live]
+    lim = (at + rtol * p.abs())[live]
+    if not err.numel():
+        return 0.0, 0.0, 0.0
+    i = int((err / lim).argmax())
+    return float(err[i] / lim[i]), float(err[i]), float(lim[i])
+
+
 def _compare_packed(kd, ki, pd, pi, qpad, vecs, metric, qt, pb, label,
-                    positional, atol=ATOL):
+                    positional, atol=None):
     """Packed keys: sorted values allclose at rtol 1e-3 + 2 * 2**(pb-24)
     (tests/test_pallas_kernels.py:159-246); every kernel row decodes to
     its own distance within the key rounding; with ``positional`` (packed,
-    not blockmin) rows equal away from near-ties."""
+    not blockmin) rows equal away from near-ties. ``atol``: a number, or
+    by default the store's (``_atol``) at each entry's row."""
     import torch
     step = 2.0 ** (pb - 24)
+    at_p = _atol(qpad, vecs, pi, qt) if atol is None else atol
+    at_k = _atol(qpad, vecs, ki, qt) if atol is None else atol
     err = _compare(kd, ki, pd, pi, label, rtol=SEL_RTOL + 2 * step,
-                   atol=atol) if positional else None
+                   atol=at_p) if positional else None
     kp = kd.shape[-1]
     live = pd[..., :kp] < 1e30
     if not torch.equal(kd < 1e30, live):
         fail(f"{label}: kernel and plain disagree on which slots are filled")
     kd_l, pd_l = kd[live], pd[..., :kp][live]
-    if not torch.allclose(kd_l, pd_l, rtol=SEL_RTOL + 2 * step, atol=atol):
+
+    def close(a, b, at, rtol):
+        at = torch.as_tensor(at, dtype=a.dtype, device=a.device)
+        if at.ndim:
+            at = at[..., :kp][live]
+        return bool(((a - b).abs() <= at + rtol * b.abs()).all())
+    if not close(kd_l, pd_l, at_p, SEL_RTOL + 2 * step):
         fail(f"{label}: sorted distances differ by up to "
              f"{(kd_l - pd_l).abs().max().item()}")
     own = _row_dists(qpad, vecs, ki, metric, qt)
-    if not torch.allclose(kd_l, own, rtol=RTOL + 2 * step, atol=atol):
+    if not close(kd_l, own, at_k, RTOL + 2 * step):
         fail(f"{label}: kernel rows do not carry their own distances "
              f"(off by up to {(kd_l - own).abs().max().item()})")
     return err if err is not None else \
@@ -793,18 +856,16 @@ MODES = {"exact": (False, False), "packed": (True, False),
 
 def _grouped_ptxas(log):
     """{(store, mode, lists): (registers, spill store + load bytes)} of the
-    grouped scan's instantiations, from ptxas's lines in its build log:
-    bf16, the tensor-core kernel (lists in registers or in shared memory);
-    f32, the FMA kernel."""
+    grouped scan's 12 instantiations (store x mode x lists in registers or
+    in shared memory), from ptxas's lines in its build log."""
     names = list(MODES)
     out, cur = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"grouped_scan_mma_kernelILi(\d)ELb([01])E", line)
-            f = re.search(r"grouped_scan_kernelIfLi(\d)E", line)
-            cur = (("bf16", names[int(m[1])],
-                    "registers" if m[2] == "1" else "shared") if m else
-                   ("f32", names[int(f[1])], "shared") if f else None)
+            m = re.search(r"grouped_scan_mma_kernelI(13__nv_bfloat16|f)Li(\d)"
+                          r"ELb([01])E", line)
+            cur = ("bf16" if m[1] != "f" else "f32", names[int(m[2])],
+                   "registers" if m[3] == "1" else "shared") if m else None
             if cur:
                 out[cur] = [None, 0]
         elif cur and "spill" in line:
@@ -815,13 +876,22 @@ def _grouped_ptxas(log):
     return out
 
 
-def _integer_cases(rng, dev):
-    """Integer-valued bf16 rows and queries: every product and sum is
-    exact on the tensor cores and in the plain version, so the kernel must
-    equal ``grouped_scan_plain`` bit for bit, ties (many) included: each
-    mode at kp 10, 100, 1024 and D 128, 200, 13 (element copies, D padded
-    to 16), and at kp 10 and 1024 and D 384, 768, 1024 (rows staged in
-    128-dim slabs, fewer queries a block), both metrics."""
+STORES = ("bf16", "f32")     # the grouped kernel's posting stores
+
+
+def _store_dtype(store):
+    import torch
+    return torch.bfloat16 if store == "bf16" else torch.float32
+
+
+def _integer_cases(rng, dev, store):
+    """Integer-valued rows and queries in the store's type: every product
+    and sum is exact on the tensor cores (bf16 products; 3xTF32, whose low
+    parts are 0) and in the plain version, so the kernel must equal
+    ``grouped_scan_plain`` bit for bit, ties (many) included: each mode at
+    kp 10, 100, 1024 and D 128, 200, 13 (element copies, D padded to the
+    k-step), and at kp 10 and 1024 and D 384, 768, 1024 (rows staged in
+    slabs, fewer queries a block), both metrics."""
     import torch
     from neurondb_tpu_torch.ops.kernels import ivf_scan_grouped as G
     lens = [0, 3, 31, 1024, 1025, 2500, 700, 64, 1, 333]
@@ -832,7 +902,7 @@ def _integer_cases(rng, dev):
     for dim, kps in ((DIM, narrow), (200, narrow), (13, narrow), (384, wide),
                      (768, wide), (1024, wide)):
         vecs, offsets, counts = _layout(rng, lens, dim, torch.float32, dev)
-        vecs = (vecs * 1.5).round().clamp(-4, 4).to(torch.bfloat16)
+        vecs = (vecs * 1.5).round().clamp(-4, 4).to(_store_dtype(store))
         for mode, (packed, bmin) in MODES.items():
             for kp, qt in kps:
                 for metric in ("sqeuclidean", "ip"):
@@ -848,42 +918,30 @@ def _integer_cases(rng, dev):
                     torch.cuda.synchronize()
                     if not (torch.equal(kd, pd) and torch.equal(ki, pi)):
                         bad = int(((kd != pd) | (ki != pi)).sum())
-                        fail(f"integer data, {mode} kp={kp} D={dim} {metric}: "
-                             f"{bad} entries differ from the plain version")
+                        fail(f"integer data, {store} store, {mode} kp={kp} "
+                             f"D={dim} {metric}: {bad} entries differ from "
+                             f"the plain version")
                     n += 1
     return n
 
 
-def phase_kernel():
+def _grouped_cases(rng, dev, store):
+    """The kernel against its plain version on a ragged layout in the
+    store's type (list lengths 0 to 2500), qt 16, 32, 64, k 10, 100, 1024,
+    both metrics, the three modes, and an all-sentinel tile set; the
+    distances within the store's tolerance, rows equal away from
+    near-ties. On the f32 store every other tile's queries are rows of
+    its own list, so d ~ 0 holds the kernel to its |q|^2 + |x|^2 term.
+    Returns (max |kernel - plain| by mode, cases, pb, the f32 store's
+    self-query ``_self_reading`` by mode)."""
     import torch
-    from neurondb_tpu_torch.ops.kernels import _build
     from neurondb_tpu_torch.ops.kernels import ivf_scan_grouped as G
-    dev = torch.device("cuda")
-    rng = np.random.default_rng(0)
-    ptxas = _grouped_ptxas(_build.build_log("ivf_scan_grouped") +
-                           _build.build_log("ivf_scan_grouped_f32"))
-    if len(ptxas) != 9:
-        fail(f"flat: ptxas lines for {len(ptxas)} of 9 kernels in the log")
-    for (store, mode, lists), (regs, spill) in sorted(ptxas.items()):
-        log(f"[kernel] ptxas flat {store} {mode}, lists in {lists}: {regs} "
-            f"registers, {spill} bytes spilled")
-        if store == "bf16" and spill:
-            fail(f"the tensor-core kernel ({mode}, lists in {lists}) spills "
-                 f"{spill} bytes")
-    lib = G._lib()
-    for dim in (DIM, 1024):
-        for kp in (10, 100, 1024):
-            for mode in range(3):
-                qs = G._pick_qs(lib, 64, dim, kp, mode, True)
-                log(f"[kernel] flat bf16 {list(MODES)[mode]} kp {kp}: {qs} "
-                    f"queries a block, "
-                    f"{lib.ivf_grouped_scan_smem_bytes(qs, dim, kp, mode, 1)} "
-                    f"B of shared memory (D {dim})")
     lens = [0, 3, 31, 1024, 1025, 2500, 700, 64, 1, 333]
-    vecs, offsets, counts = _layout(rng, lens, DIM, torch.bfloat16, dev)
+    vecs, offsets, counts = _layout(rng, lens, DIM, _store_dtype(store), dev)
     pb_small = max(11, (max(lens) - 1).bit_length())
     nl = len(lens)
     errs = {m: 0.0 for m in MODES}
+    selfs = {m: (0.0, 0.0, 0.0) for m in MODES}
     n_cases = 0
     for mode, (packed, bmin) in MODES.items():
         pb = pb_small if packed else 0
@@ -894,6 +952,9 @@ def phase_kernel():
                     q = torch.randn((b, DIM), device=dev) * 0.5
                     probes = _probes(rng, b, 4, 6, nl, dev)
                     qpad, toff, tcnt, _ = _tiles(q, probes, offsets, counts, qt)
+                    if store == "f32":
+                        qpad, own = _self_queries(qpad, vecs, toff, tcnt, qt,
+                                                  2)
                     kp = max(8, min(k, G.SEG))
                     kw = dict(qt=qt, metric=metric, pos_bits=pb, block_min=bmin)
                     kd, ki = G.grouped_probe_scan(qpad, vecs, toff, tcnt,
@@ -901,11 +962,17 @@ def phase_kernel():
                     pd, pi = G.grouped_scan_plain(qpad, vecs, toff, tcnt,
                                                   kp=kp + 1, **kw)
                     torch.cuda.synchronize()
-                    label = f"{mode} qt={qt} k={k} {metric}"
-                    err = (_compare(kd, ki, pd, pi, label) if not packed else
+                    label = f"{store} {mode} qt={qt} k={k} {metric}"
+                    at = _atol(qpad, vecs, pi, qt)
+                    err = (_compare(kd, ki, pd, pi, label, atol=at)
+                           if not packed else
                            _compare_packed(kd, ki, pd, pi, qpad, vecs, metric,
                                            qt, pb, label, positional=not bmin))
                     errs[mode] = max(errs[mode], err)
+                    if store == "f32":
+                        r = _self_reading(kd, pd, at, RTOL if not packed else
+                                          SEL_RTOL + 2 * 2.0 ** (pb - 24), own)
+                        selfs[mode] = max(selfs[mode], r)
                     n_cases += 1
         # a tile set that is all sentinels
         q = torch.randn((32, DIM), device=dev)
@@ -915,22 +982,67 @@ def phase_kernel():
                                       pos_bits=pb, block_min=bmin)
         torch.cuda.synchronize()
         if not (bool((ki == -1).all()) and bool((kd == G.NEG_FILL).all())):
-            fail(f"{mode}: all-sentinel tiles must hold (NEG_FILL, -1) only")
+            fail(f"{store} {mode}: all-sentinel tiles must hold (NEG_FILL, -1) "
+                 f"only")
         n_cases += 1
-    log(f"[kernel] flat: {n_cases} cases match the plain version (exact: "
-        f"rtol {RTOL}, atol {ATOL}; packed/blockmin at pb {pb_small}: sorted "
-        f"values rtol {SEL_RTOL} + 2*2^(pb-24), rows carry their distances); "
-        f"max |kernel - plain| exact {errs['exact']:.3e}, packed "
-        f"{errs['packed']:.3e}, blockmin {errs['blockmin']:.3e}")
-    n_int = _integer_cases(rng, dev)
-    log(f"[kernel] flat: {n_int} integer-data cases (every mode, kp 10, "
-        f"100, 1024 at D {DIM}, 200 and 13; kp 10 and 1024 at D 384, 768 "
-        f"and 1024; both metrics) equal the plain version bit for bit")
+    return errs, n_cases, pb_small, selfs
 
-    # headline shapes: 1M bf16 rows in 1024 lists, 16,384 queries, nprobe 8
-    # padded to 16 (the index's bucket), k = 10
+
+def phase_kernel():
+    import torch
+    from neurondb_tpu_torch.ops.kernels import _build
+    from neurondb_tpu_torch.ops.kernels import ivf_scan_grouped as G
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    ptxas = _grouped_ptxas(_build.build_log("ivf_scan_grouped"))
+    if len(ptxas) != 12:
+        fail(f"flat: ptxas lines for {len(ptxas)} of 12 kernels in the log")
+    for (store, mode, lists), (regs, spill) in sorted(ptxas.items()):
+        log(f"[kernel] ptxas flat {store} {mode}, lists in {lists}: {regs} "
+            f"registers, {spill} bytes spilled")
+        if spill:
+            fail(f"the grouped kernel ({store} store, {mode}, lists in "
+                 f"{lists}) spills {spill} bytes")
+    lib = G._lib()
+    for store in STORES:
+        for dim in (DIM, 1024):
+            for kp in (10, 100, 1024):
+                for mode in range(3):
+                    qs = G._pick_qs(lib, 64, dim, kp, mode, store == "bf16")
+                    smem = lib.ivf_grouped_scan_smem_bytes(
+                        qs, dim, kp, mode, int(store == "bf16"))
+                    log(f"[kernel] flat {store} {list(MODES)[mode]} kp {kp}: "
+                        f"{qs} queries a block, {smem} B of shared memory "
+                        f"(D {dim})")
+    errs = {}
+    for store in STORES:
+        errs[store], n_cases, pb_small, selfs = _grouped_cases(rng, dev,
+                                                               store)
+        tol = (f"rtol {RTOL}, atol {ATOL}" if store == "bf16" else
+               f"rtol {RTOL}, atol {G.F32_TERMS_TOL:.0e} of |q|^2 + |x|^2")
+        e = errs[store]
+        log(f"[kernel] flat {store} store: {n_cases} cases match the plain "
+            f"version (exact: {tol}; packed/blockmin at pb {pb_small}: sorted "
+            f"values rtol {SEL_RTOL} + 2*2^(pb-24), rows carry their "
+            f"distances); max |kernel - plain| exact {e['exact']:.3e}, packed "
+            f"{e['packed']:.3e}, blockmin {e['blockmin']:.3e}")
+        if store == "f32":
+            log("[kernel] flat f32 store, tiles of self queries (d ~ 0): "
+                "largest |kernel - plain| against its limit (atol + rtol "
+                "|plain|) " + ", ".join(
+                    f"{m} {sh:.3f} of it ({er:.3e} of {li:.3e})"
+                    for m, (sh, er, li) in selfs.items()))
+    for store in STORES:
+        n_int = _integer_cases(rng, dev, store)
+        log(f"[kernel] flat {store} store: {n_int} integer-data cases (every "
+            f"mode, kp 10, 100, 1024 at D {DIM}, 200 and 13; kp 10 and 1024 "
+            f"at D 384, 768 and 1024; both metrics) equal the plain version "
+            f"bit for bit")
+
+    # headline shapes: 1M rows in 1024 lists, 16,384 queries, nprobe 8
+    # padded to 16 (the index's bucket), k = 10; one layout, each store
     lens = rng.multinomial(N_ROWS, np.full(NLISTS, 1.0 / NLISTS))
-    vecs, offsets, counts = _layout(rng, lens, DIM, torch.bfloat16, dev)
+    vecs32, offsets, counts = _layout(rng, lens, DIM, torch.float32, dev)
     q = torch.randn((BATCH, DIM), device=dev)
     probes = _probes(rng, BATCH, 8, 16, NLISTS, dev)
     qt = G.auto_qt(BATCH, 16, NLISTS)
@@ -938,41 +1050,65 @@ def phase_kernel():
     kp = max(8, K)
     pb = max(11, int(lens.max() - 1).bit_length())
     tuples, rows, uniq = _probe_work(probes, counts, NLISTS)
-    # bytes: the distinct probed rows (bf16) and the real tuples' queries
-    # read once, their top-kp written once; operations: the real tuples'
-    # products, bf16 x bf16 (q is rounded to the store type) summed in
-    # f32, which the tensor cores compute exactly
-    nbytes = uniq * DIM * 2 + tuples * DIM * 4 + tuples * kp * 8
-    rate = "bf16 tensor core" if vecs.dtype == torch.bfloat16 else "f32"
-    bound_ms, bound_by = _bound(nbytes, 2.0 * rows * DIM, rate)
     live_tiles = int((tcnt > 0).sum())
-    stats = {}
-    for mode, (packed, bmin) in MODES.items():
-        kw = dict(kp=kp, qt=qt, pos_bits=pb if packed else 0, block_min=bmin)
-        kd, ki = G.grouped_probe_scan(qpad, vecs, toff, tcnt, **kw)
-        pd, pi = G.grouped_scan_plain(qpad, vecs, toff, tcnt,
-                                      **dict(kw, kp=kp + 1))
-        torch.cuda.synchronize()
-        err = (_compare(kd, ki, pd, pi, f"headline {mode}") if not packed else
-               _compare_packed(kd, ki, pd, pi, qpad, vecs, "sqeuclidean", qt,
-                               pb, f"headline {mode}", positional=not bmin))
-        del kd, ki, pd, pi
-        ms = _cuda_ms(lambda: G.grouped_probe_scan(qpad, vecs, toff, tcnt,
-                                                   **kw), 20)
-        plain_ms = _cuda_ms(lambda: G.grouped_scan_plain(qpad, vecs, toff,
-                                                         tcnt, **kw), 3)
-        stats[mode] = {"max_abs_err": max(errs[mode], err), "ms": ms,
-                       "plain_ms": plain_ms, "bound_ms": bound_ms,
-                       "bound_by": bound_by, "library_ms": None}
-        log(f"[kernel] flat {mode:8s} headline: {toff.shape[0]} tiles "
-            f"({live_tiles} live) x qt {qt}, kp {kp}, pb {kw['pos_bits']}: "
-            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-            f"{bound_ms:.3f} ms ({bound_by}; {nbytes / 1e9:.3f} GB, "
-            f"{2.0 * rows * DIM / 1e9:.1f} GFLOP at the {rate} peak over "
-            f"{tuples} tuples)")
+    stats = {m: {} for m in MODES}
+    for store in STORES:
+        vecs = vecs32.to(torch.bfloat16) if store == "bf16" else vecs32
+        if store == "f32":       # some tiles of self queries (d ~ 0)
+            qpad, own = _self_queries(qpad, vecs, toff, tcnt, qt, 256)
+        # bytes: the distinct probed rows and the real tuples' queries read
+        # once, their top-kp written once; operations: the real tuples'
+        # products, bf16 x bf16 summed in f32 (q rounded to the store
+        # type), which the tensor cores compute exactly, or f32-accurate
+        # products as three TF32 tensor-core passes
+        esize = vecs.element_size()
+        nbytes = uniq * DIM * esize + tuples * DIM * 4 + tuples * kp * 8
+        flops = 2.0 * rows * DIM
+        rate = ("bf16 tensor core" if store == "bf16" else
+                "f32 as 3 TF32 tensor-core passes")
+        bound_ms, bound_by = _bound(nbytes, flops, rate)
+        t_bytes = nbytes / HBM_BPS * 1e3
+        t_ops = flops / PEAK_FLOPS[rate] * 1e3
+        for mode, (packed, bmin) in MODES.items():
+            kw = dict(kp=kp, qt=qt, pos_bits=pb if packed else 0,
+                      block_min=bmin)
+            kd, ki = G.grouped_probe_scan(qpad, vecs, toff, tcnt, **kw)
+            pd, pi = G.grouped_scan_plain(qpad, vecs, toff, tcnt,
+                                          **dict(kw, kp=kp + 1))
+            torch.cuda.synchronize()
+            label = f"headline {store} {mode}"
+            at = _atol(qpad, vecs, pi, qt)
+            err = (_compare(kd, ki, pd, pi, label, atol=at) if not packed else
+                   _compare_packed(kd, ki, pd, pi, qpad, vecs, "sqeuclidean",
+                                   qt, pb, label, positional=not bmin))
+            self_txt = ""
+            if store == "f32":
+                sh, er, li = _self_reading(
+                    kd, pd, at, RTOL if not packed else
+                    SEL_RTOL + 2 * 2.0 ** (kw["pos_bits"] - 24), own)
+                self_txt = (f"; {own.numel()} tiles of self queries: largest "
+                            f"|kernel - plain| {sh:.3f} of its limit "
+                            f"({er:.3e} of {li:.3e})")
+            del kd, ki, pd, pi, at
+            ms = _cuda_ms(lambda: G.grouped_probe_scan(qpad, vecs, toff, tcnt,
+                                                       **kw), 20)
+            plain_ms = _cuda_ms(lambda: G.grouped_scan_plain(
+                qpad, vecs, toff, tcnt, **kw), 3)
+            stats[mode][store] = {
+                "max_abs_err": max(errs[store][mode], err), "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None}
+            log(f"[kernel] flat {store} {mode:8s} headline: {toff.shape[0]} "
+                f"tiles ({live_tiles} live) x qt {qt}, kp {kp}, pb "
+                f"{kw['pos_bits']}: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
+                f"ms, bound {bound_ms:.3f} ms ({bound_by}; bytes "
+                f"{nbytes / 1e9:.3f} GB in {t_bytes:.3f} ms, {flops / 1e9:.1f} "
+                f"GFLOP at the {rate} peak in {t_ops:.3f} ms, over {tuples} "
+                f"tuples){self_txt}")
+        del vecs
     log("[kernel] flat: no single PyTorch call computes the grouped scan "
         "with its selection; library_ms is null")
-    del vecs, qpad
+    del vecs32, qpad
     torch.cuda.empty_cache()
     return stats
 
@@ -1382,6 +1518,88 @@ def phase_main():
         fail(f"the grouped searches did not all go through the kernel "
              f"({launches} launches, {n_grouped} grouped searches)")
     return index, qb, chosen, per_mode, x, gt, exact
+
+
+def phase_f32_store(index, x, qb, chosen, gt, exact):
+    """The main path's index built again on the f32 store
+    (``configure(store_dtype="float32")``, restored after): at the bf16
+    index's nprobe and batch 16,384, recall@10 of both stores against the
+    port's f32 ``FlatIndex`` and the committed ground truth, QPS of both in
+    turns, the device memory each store's index holds and the f32 store's
+    grouped launches. Fails if the f32 store's recall against
+    ``FlatIndex`` is below the bf16 store's (it drops bf16's rounding of
+    rows and queries). Returns the f32 store's launches by mode."""
+    import torch
+    import neurondb_tpu_torch as nt
+    from neurondb_tpu_torch.ml.metrics import recall_at_k
+    from neurondb_tpu_torch.ops.kernels import ivf_scan_grouped as G
+    sel = nt.get_config().ivf_select
+    old = nt.get_config().store_dtype
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    nt.configure(store_dtype="float32")
+    try:
+        f32 = nt.IVFFlatIndex(x, nlists=NLISTS, metric="l2", seed=0,
+                              device="cuda")
+    finally:
+        nt.configure(store_dtype=old)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    grew = torch.cuda.memory_allocated() - mem0
+
+    def held(idx):         # bytes of the index's tensors on the card
+        seen = {}
+        for t in vars(idx).values():
+            if isinstance(t, torch.Tensor) and t.is_cuda:
+                st = t.untyped_storage()
+                seen[st.data_ptr()] = st.nbytes()
+        return sum(seen.values())
+    if f32._vecs.dtype != torch.float32 or nt.get_config().store_dtype != old:
+        fail("the f32-store index must hold f32 rows, and the setting must "
+             "be restored")
+    indexes = {"bf16": index, "f32": f32}
+    launches = 0
+    recalls = {}
+    for name, idx in indexes.items():
+        g0 = G.LAUNCHES
+        _, ids = idx.search(qb, k=K, nprobe=chosen)
+        if name == "f32":
+            launches += G.LAUNCHES - g0
+        recalls[name] = (recall_at_k(ids[:NQ], exact),
+                         recall_at_k(ids[:NQ], gt))
+    reps = {name: [] for name in indexes}
+    searches = 1
+    for rnd in range(4):                       # round 0 warms up
+        for name in (list(indexes) if rnd % 2 == 0 else
+                     list(indexes)[::-1]):
+            idx = indexes[name]
+            g0 = G.LAUNCHES
+            qps = _rep(lambda: idx.search(qb, k=K, nprobe=chosen), BATCH)
+            if name == "f32":
+                launches += G.LAUNCHES - g0
+                searches += 4
+            if rnd:
+                reps[name].append(qps)
+    for name in indexes:
+        log(f"[f32 store] {name} store, nprobe {chosen}, select {sel}: "
+            f"recall@10 vs FlatIndex {recalls[name][0]:.4f}, vs the "
+            f"committed ground truth {recalls[name][1]:.4f}; QPS median "
+            f"{np.median(reps[name]):.0f} of {[round(r) for r in reps[name]]} "
+            f"(batch {BATCH}, 4 batches a rep, stores in turns); the "
+            f"index's tensors on the card {held(indexes[name]) / 2**20:.1f} "
+            f"MiB")
+    log(f"[f32 store] f32 index built in {build_s:.2f} s (device memory "
+        f"allocated grew {grew / 2**20:.1f} MiB); grouped launches "
+        f"{launches} for {searches} f32-store searches")
+    if launches != searches:
+        fail(f"f32 store: {launches} grouped launches for {searches} searches")
+    if recalls["f32"][0] < recalls["bf16"][0]:
+        fail(f"f32 store recall@10 vs FlatIndex {recalls['f32'][0]} below "
+             f"the bf16 store's {recalls['bf16'][0]}")
+    del f32, indexes
+    torch.cuda.empty_cache()
+    return {m: launches if m == sel else 0 for m in MODES}
 
 
 def phase_probe_route(index, qb, chosen, gt, exact):
@@ -5890,6 +6108,7 @@ def main(argv):
     flash_stats = phase_flash_kernel(smi)
     probe_stats = phase_probe_kernel(smi)
     flat_launches = {m: None for m in MODES}
+    f32_launches = {m: None for m in MODES}
     pq_launches = {"exact": None, "packed": None}
     flash_launches = {"bf16": None, "f32": None}
     probe_launches = {"exact": None}
@@ -5897,6 +6116,7 @@ def main(argv):
     if not kernels_only:
         from neurondb_tpu_torch import get_config
         index, qb, chosen, flat_launches, x, gt, exact = phase_main()
+        f32_launches = phase_f32_store(index, x, qb, chosen, gt, exact)
         _profile(f"profile nprobe {chosen} batch {BATCH}",
                  lambda: index.search(qb, k=K, nprobe=chosen))
         probe_launches = {"exact": phase_probe_route(index, qb, chosen, gt,
@@ -5932,9 +6152,17 @@ def main(argv):
             ("ivf_probe_scan", probe_stats, probe_launches)):
         source, replaces = SOURCES[name]
         for mode, s in stats.items():
+            if name == "ivf_grouped_scan":
+                # one kernel, both stores: at the top the main paths'
+                # (bf16 store) numbers and launches; each store's own,
+                # launches included, under by_store
+                by_store = {st: dict(s[st], launches=n[mode]) for st, n in
+                            (("bf16", launches), ("f32", f32_launches))}
+                s = dict(by_store["bf16"], by_store=by_store)
+            else:
+                s = dict(s, launches=launches[mode])
             kernels.append({"name": name, "mode": mode, "route": "cuda",
-                            "source": source, "replaces": replaces,
-                            "launches": launches[mode], **s})
+                            "source": source, "replaces": replaces, **s})
     source, replaces = SOURCES["ml_recurrence"]
     for mode in ("q_learning", "holt_winters"):
         st = dict(rec_stats[mode]) if rec_stats else {}

@@ -78,10 +78,11 @@
 // f32 mode (m16n8k8, 3xTF32): every product is f32-accurate on the
 // tensor cores. An operand x splits into hi = x & 0xffffe000, its top 19
 // bits, exactly a TF32 value, and lo = x - hi, exact in f32 (one LOP, one
-// FSUB, no cvt). Each product is lo.hi + hi.lo + hi.hi, three mma into
-// the same accumulator, the small terms first; the dropped lo.lo and the
-// hardware's truncation of lo to TF32 leave ~2^-21 relative per product,
-// f32 noise. Both products take the split, p like any operand. The ring
+// FSUB, no cvt: hopper.cuh `split_tf32_trunc`). Each product is lo.hi +
+// hi.lo + hi.hi, three mma into the same accumulator, the small terms
+// first; the dropped lo.lo and the hardware's truncation of lo to TF32
+// leave ~2^-21 relative per product, f32 noise. Both products take the
+// split, p like any operand. The ring
 // holds the cp.async'd f32 rows as they are, padded by 4 floats (ld = Dh
 // + 4 = 4 mod 32 words), so the 32-bit fragment loads are conflict-free:
 // bank 4g + t for Q's A and K's B fragments (row g, column t), 8t + g for
@@ -108,8 +109,10 @@ namespace {
 
 using ndb::ldmatrix_x4;
 using ndb::ldmatrix_x4_trans;
+using ndb::mma_3xtf32;
 using ndb::mma_bf16;
 using ndb::pack_bf16;
+using ndb::split_tf32_trunc;
 
 constexpr float kNegInf = -1e30f;       // the masked logit, as on the TPU
 constexpr int kThreads = 8 * 32;        // 8 warps x 16 query rows
@@ -128,31 +131,6 @@ struct Args {
   long long qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss;
   float scale;
 };
-
-// x = hi + lo: hi its top 19 bits (a TF32 value), lo = x - hi (exact).
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = __float_as_uint(x) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// D += A B: A 16x8 tf32 (row), B 8x8 tf32 (col), D 16x8 f32.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// D += A B to f32 accuracy (3xTF32): lo.hi + hi.lo, then hi.hi.
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4],
-                                           const uint32_t (&al)[4], uint32_t bh0,
-                                           uint32_t bh1, uint32_t bl0, uint32_t bl1) {
-  mma_tf32(d, al, bh0, bh1);
-  mma_tf32(d, ah, bl0, bl1);
-  mma_tf32(d, ah, bh0, bh1);
-}
 
 // The 16-byte pieces of rows [0, kRows) of an f32 [*, kDh] tile that
 // this thread moves: piece n is row r0 + n * kRowStep, columns c .. c + 3.
@@ -522,15 +500,15 @@ flash_f32_kernel(Args a, int q_tiles) {
 #pragma unroll
     for (int kk = 0; kk < kKSteps; ++kk) {
       uint32_t qh[4], ql[4];
-      split_tf32(qw[8 * kk], qh[0], ql[0]);
-      split_tf32(qw[8 * kk + 8 * kLd], qh[1], ql[1]);
-      split_tf32(qw[8 * kk + 4], qh[2], ql[2]);
-      split_tf32(qw[8 * kk + 8 * kLd + 4], qh[3], ql[3]);
+      split_tf32_trunc(qw[8 * kk], qh[0], ql[0]);
+      split_tf32_trunc(qw[8 * kk + 8 * kLd], qh[1], ql[1]);
+      split_tf32_trunc(qw[8 * kk + 4], qh[2], ql[2]);
+      split_tf32_trunc(qw[8 * kk + 8 * kLd + 4], qh[3], ql[3]);
 #pragma unroll
       for (int j = 0; j < kNk; ++j) {
         uint32_t bh0, bl0, bh1, bl1;
-        split_tf32(Kt[8 * j * kLd + 8 * kk], bh0, bl0);
-        split_tf32(Kt[8 * j * kLd + 8 * kk + 4], bh1, bl1);
+        split_tf32_trunc(Kt[8 * j * kLd + 8 * kk], bh0, bl0);
+        split_tf32_trunc(Kt[8 * j * kLd + 8 * kk + 4], bh1, bl1);
         mma_3xtf32(s[j], qh, ql, bh0, bh1, bl0, bl1);
       }
     }
@@ -590,15 +568,15 @@ flash_f32_kernel(Args a, int q_tiles) {
 #pragma unroll
     for (int j = 0; j < kNk; ++j) {
       uint32_t ph[4], pl[4];
-      split_tf32(s[j][0], ph[0], pl[0]);
-      split_tf32(s[j][2], ph[1], pl[1]);
-      split_tf32(s[j][1], ph[2], pl[2]);
-      split_tf32(s[j][3], ph[3], pl[3]);
+      split_tf32_trunc(s[j][0], ph[0], pl[0]);
+      split_tf32_trunc(s[j][2], ph[1], pl[1]);
+      split_tf32_trunc(s[j][1], ph[2], pl[2]);
+      split_tf32_trunc(s[j][3], ph[3], pl[3]);
 #pragma unroll
       for (int nd = 0; nd < kNd; ++nd) {
         uint32_t bh0, bl0, bh1, bl1;
-        split_tf32(Vt[8 * j * kLd + 8 * nd], bh0, bl0);
-        split_tf32(Vt[8 * j * kLd + kLd + 8 * nd], bh1, bl1);
+        split_tf32_trunc(Vt[8 * j * kLd + 8 * nd], bh0, bl0);
+        split_tf32_trunc(Vt[8 * j * kLd + kLd + 8 * nd], bh1, bl1);
         mma_3xtf32(o[nd], ph, pl, bh0, bh1, bl0, bl1);
       }
     }

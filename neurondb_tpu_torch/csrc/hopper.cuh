@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the kernels: cp.async copies
-// into a shared-memory ring, ldmatrix fragment loads and the bf16
-// mma.sync product.
+// into a shared-memory ring, ldmatrix fragment loads, the bf16 mma.sync
+// product and the f32-accurate product of three TF32 mma.sync (3xTF32).
 
 #pragma once
 
@@ -123,6 +123,54 @@ __device__ __forceinline__ void ldmatrix_x2(uint32_t& r0, uint32_t& r1,
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
                : "=r"(r0), "=r"(r1)
                : "r"(addr));
+}
+
+// ---- f32-accurate tensor-core products (3xTF32) -----------------------------
+
+// x rounded to TF32 (10 mantissa bits, to nearest, ties away from zero):
+// the bits cvt.rna.tf32.f32 gives, made by an integer add of half a step
+// to the magnitude and a mask. Conversions issue at a quarter of the
+// integer ops' rate (16 against 64 a cycle an SM); with cvt, two a split,
+// the grouped scan's f32 products took 12-16% longer.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x ~ hi + lo: hi = tf32(x), lo = tf32(x - hi) (x - hi is exact); the
+// part of x that lo drops is at most 2^-22 |x|.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(__fsub_rn(x, __uint_as_float(hi)));
+}
+
+// x = hi + lo: hi its top 19 bits (a TF32 value), lo = x - hi, exact in
+// f32 (one LOP, one FSUB); the mma reads lo's top 19 bits. Flash's f32
+// mode takes this split: it passes its tolerance and costs fewer issue
+// slots than the rounded one.
+__device__ __forceinline__ void split_tf32_trunc(float x, uint32_t& hi,
+                                                 uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// D += A B: A 16x8 tf32 (row), B 8x8 tf32 (col), D 16x8 f32.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// D += A B to f32 accuracy (3xTF32): lo.hi + hi.lo, then hi.hi (lo.lo,
+// below 2^-22 of the product, is dropped).
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], uint32_t bh0,
+                                           uint32_t bh1, uint32_t bl0, uint32_t bl1) {
+  mma_tf32(d, al, bh0, bh1);
+  mma_tf32(d, ah, bl0, bl1);
+  mma_tf32(d, ah, bh0, bh1);
 }
 
 }  // namespace ndb

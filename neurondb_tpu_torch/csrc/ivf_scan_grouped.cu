@@ -1,5 +1,5 @@
-// List-grouped IVF probe scan with top-kp selection over a bf16 store, for
-// Hopper (sm_90a); the f32 store's kernel is ivf_scan_grouped_f32.cu.
+// List-grouped IVF probe scan with top-kp selection over a bf16 or an f32
+// store, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel neurondb_tpu/ops/pallas/ivf_scan_grouped.py
 // `_grouped_scan_kernel` in its three selection modes: exact
@@ -32,51 +32,70 @@
 //
 // What bounds it on the card. At the 1M x 128 headline (16,384 queries,
 // nprobe 8, nlists 1024, ~1k rows per list, 64 queries per tile) a batch
-// needs ~33 GFLOP of bf16 x bf16 products (0.034 ms at the 989 TFLOP/s
-// tensor-core peak) and ~0.33 GB of distinct rows, queries and outputs
-// (0.0996 ms at 3.35 TB/s): it is byte-bound, and each list is read by
-// its two tiles, mostly from L2. bf16 x bf16 products are exact in f32,
-// so the tensor cores compute the TPU's MXU products; only the order of
-// the f32 sums differs from the plain version's (on integer data the
-// kernel equals it bit for bit). Around the products each candidate costs
-// a distance, a test against its query's bound and, rarely, an insertion:
-// ~128M candidates at the headline, which with the products and the
-// staging of each chunk set the kernel's time.
+// needs ~33 GFLOP of products. bf16 store: bf16 x bf16 (0.034 ms at the
+// 989 TFLOP/s tensor-core peak) and ~0.33 GB of distinct rows, queries
+// and outputs (0.0996 ms at 3.35 TB/s): byte-bound, and each list is read
+// by its two tiles, mostly from L2. bf16 x bf16 products are exact in
+// f32, so the tensor cores compute the TPU's MXU products; only the order
+// of the f32 sums differs from the plain version's (on integer data the
+// kernel equals it bit for bit). f32 store: each product made of three
+// TF32 products (0.199 ms at the 495 TFLOP/s TF32 rate) and ~0.59 GB
+// (0.176 ms): operation-bound. Around the products each candidate costs
+// a distance, a test against its query's bound and, rarely, an
+// insertion: ~128M candidates at the headline, which with the products
+// and the staging of each chunk set the kernel's time.
 //
-// Design, bf16 store (the main path's):
+// Design (both stores; one template, the store type its first argument):
 // - one block (8 warps) per sub-tile of qs <= 64 queries; the wrapper
 //   splits a tile of qt queries into qt/qs sub-tiles so that the per-query
 //   lists fit in shared memory when kp > 16. The queries are padded to
 //   m-tiles of 16 (1, 2 or 4 of them); each m-tile gets 8, 4 or 2 warps,
 //   which split every 64-row chunk of the list into n-tiles of 8 rows
 //   (1, 2 or 4 a warp);
-// - products by mma.sync m16n8k16 (bf16 in, f32 accumulate): A is the
-//   warp's 16 queries, rounded to bf16 and staged once at full width, held
-//   in registers as ldmatrix.x4 fragments for the whole list (D <= 128;
-//   wider D reloads them for each 128-dim slab); B is the staged slab's
-//   rows, by ldmatrix.x4 (two k-steps a load). D is padded with zeros to a
-//   multiple of 16 in shared memory, never read past the row;
-// - the list streams through a 4-stage ring whose stage holds one slab of
-//   <= 128 dims of a 64-row chunk (D <= 128: the whole chunk), bf16 as
-//   stored, filled by 16-byte cp.async copies (element copies where D % 8
-//   or the store's alignment forbid) while earlier slabs are scored; the
-//   chunk's products sum over its slabs in the accumulators, so the ring
-//   takes 70 KB at any D and only the queries grow with it (wide D fits by
-//   fewer queries a block). A row's stride is an odd number of 16-byte
-//   units, so ldmatrix's 8 row addresses fall in 8 distinct bank groups.
-//   Rows past the list's count are neither read nor scored, which takes
-//   the place of the TPU kernel's clamped DMA window. One barrier a slab;
-//   |x|^2 of the next slab is summed (once a row, from the staged bf16)
-//   while this one is multiplied;
-// - the C fragment holds queries g, g + 8 and rows 2t, 2t + 1 of each
-//   n-tile (lane 4g + t); lanes t and t ^ 1 trade halves by two shuffles,
-//   so a thread keeps one query (g + 8 (t & 1)) and rows 4s .. 4s + 3 of
-//   each n-tile (s = t >> 1). Within one thread a query's rows only grow
-//   over n-tiles and chunks, and lanes t and t ^ 2 of the warp hold the
-//   query's other rows. Distances are made in registers and tested against
-//   the query's bound before they touch any list: the lesser of the two
-//   lanes' least kp-th entry and their greatest ceil(kp / 2)-th entry
-//   (below either lie kp entries);
+// - bf16 store: products by mma.sync m16n8k16 (bf16 in, f32 accumulate):
+//   A is the warp's 16 queries, rounded to bf16 and staged once at full
+//   width, held in registers as ldmatrix.x4 fragments for the whole list
+//   (D <= 128; wider D reloads them for each 128-dim slab); B is the
+//   staged slab's rows, by ldmatrix.x4 (two k-steps a load);
+// - f32 store: products by 3xTF32 mma.sync m16n8k8 (hopper.cuh
+//   `split_tf32`, `mma_tf32`: lo.hi + hi.lo + hi.hi, each operand split
+//   into TF32 hi and lo, rounded as cvt.rna rounds but by integer ops, as
+//   it is loaded; the three passes are issued across the warp's n-tiles,
+//   so that no mma waits on the one before it, with the n-tiles a warp
+//   takes a template argument, unrolled without guards; two blocks an SM
+//   hide the rest). The queries are staged once as f32
+//   and their A fragments loaded and split for every slab (held as hi/lo
+//   pairs they would take 128 registers at D 128); B is two 32-bit loads
+//   of the staged rows (row g, dims t and t + 4). Nothing is rounded to
+//   bf16. Small integers are exact in TF32 (lo = 0), so on integer data
+//   this kernel too equals the plain version bit for bit;
+// - D is padded with zeros to a multiple of the k-step (16 bf16, 8 f32)
+//   in shared memory, never read past the row;
+// - the list streams through a ring whose stage holds one slab of 256
+//   bytes a row (128 bf16 or 64 f32 dims) of a 64-row chunk, as stored,
+//   filled by 16-byte cp.async copies (element copies where D or the
+//   store's alignment forbid) while earlier slabs are scored; the chunk's
+//   products sum over its slabs in the accumulators, so the ring takes the
+//   same bytes for either store at any D and only the queries grow with
+//   D (wide D fits by fewer queries a block). The ring has 4 stages, 3 for
+//   the f32 store with lists in registers (two blocks an SM). A row's
+//   stride is an odd number of 16-byte units, so ldmatrix's 8 row
+//   addresses fall in 8 distinct bank groups, and the f32 fragments' 32
+//   lanes (row g, dim t) in 32 distinct banks. Rows past the list's count
+//   are neither read nor scored, which takes the place of the TPU
+//   kernel's clamped DMA window. One barrier a slab; |x|^2 of the next
+//   slab is summed (once a row, in f32, from the staged row) while this
+//   one is multiplied;
+// - the C fragment (the same for both products) holds queries g, g + 8
+//   and rows 2t, 2t + 1 of each n-tile (lane 4g + t); lanes t and t ^ 1
+//   trade halves by two shuffles, so a thread keeps one query
+//   (g + 8 (t & 1)) and rows 4s .. 4s + 3 of each n-tile (s = t >> 1).
+//   Within one thread a query's rows only grow over n-tiles and chunks,
+//   and lanes t and t ^ 2 of the warp hold the query's other rows.
+//   Distances are made in registers and tested against the query's bound
+//   before they touch any list: the lesser of the two lanes' least kp-th
+//   entry and their greatest ceil(kp / 2)-th entry (below either lie kp
+//   entries);
 // - kp <= 16 (the main path's k 10), exact and packed: each thread keeps a
 //   topk_select.cuh `RegList`; the candidates that beat the bound are
 //   queued in shared memory (key, and a byte for the row) and inserted in
@@ -111,8 +130,8 @@
 #include "topk_select.cuh"
 
 // Stage cuts for measurement only (scripts/grouped_ab.py --stages builds
-// them), bf16 store: 1 skips the selection, 2 the norms, the products and
-// the selection too. The package builds the whole kernel (0).
+// them): 1 skips the selection, 2 the norms, the products and the
+// selection too. The package builds the whole kernel (0).
 #ifndef NDB_GROUPED_CUT
 #define NDB_GROUPED_CUT 0
 #endif
@@ -131,14 +150,45 @@ constexpr int kQsMax = 64;              // queries per block at most
 
 enum Mode { kExact = 0, kPacked = 1, kBlockMin = 2 };
 
-constexpr int kStages = 4;              // ring stages of kRows rows
-constexpr int kSlab = 128;              // dims a ring stage holds of a row
-constexpr int kKsReg = kSlab / 16;      // k-steps of A held in registers
+constexpr int kSlabBytes = 256;         // bytes a ring stage holds of a row
+constexpr int kKsReg = 8;               // bf16: k-steps of A in registers
 constexpr int kNtMax = 4;               // n-tiles (8 rows) a warp, a chunk
 constexpr int kTileLd = kRows + 8;      // words a query in the distance tile
 constexpr int kCmLd = kClasses + 8;     // words a query in the minima tile
 // queued candidates: per thread, 4 rows x kNtMax n-tiles
 constexpr int kQueue = 4 * kNtMax * kThreads;
+
+using bf16 = __nv_bfloat16;
+
+template <typename T>
+__host__ __device__ constexpr bool is_bf16() {
+  return std::is_same<T, bf16>::value;
+}
+// dims an mma k-step takes: m16n8k16 (bf16), m16n8k8 (tf32)
+template <typename T>
+__host__ __device__ constexpr int k_dims() { return is_bf16<T>() ? 16 : 8; }
+// dims a ring stage holds of a row: 128 bf16, 64 f32
+template <typename T>
+__host__ __device__ constexpr int slab_dims() {
+  return kSlabBytes / static_cast<int>(sizeof(T));
+}
+// dims a 16-byte copy moves
+template <typename T>
+__host__ __device__ constexpr int vec_dims() {
+  return 16 / static_cast<int>(sizeof(T));
+}
+// ring stages: 4; 3 for the f32 store's kernel with lists in registers,
+// which then fits two blocks an SM
+template <typename T, bool kReg>
+__host__ __device__ constexpr int ring_stages() {
+  return !is_bf16<T>() && kReg ? 3 : 4;
+}
+// k-steps a slab: 8 either way
+template <typename T>
+__host__ __device__ constexpr int slab_steps() {
+  return slab_dims<T>() / k_dims<T>();
+}
+static_assert(slab_steps<bf16>() == kKsReg, "bf16: a slab's A in registers");
 
 __host__ __device__ __forceinline__ long long take(long long& at,
                                                    long long bytes) {
@@ -153,11 +203,14 @@ __host__ __device__ __forceinline__ int m_tiles(int qs) {
   return m <= 1 ? 1 : (m <= 2 ? 2 : 4);
 }
 
-// bytes a row of `dims` bf16 (padded to 16) takes in shared memory: an odd
-// number of 16-byte units, so that ldmatrix's 8 row addresses fall in 8
-// distinct bank groups
+// bytes a row of `dims` T (padded to the k-step) takes in shared memory:
+// an odd number of 16-byte units, so that ldmatrix's 8 row addresses fall
+// in 8 distinct bank groups, and 32-bit loads of (row g, dim t), g < 8,
+// t < 4 in 32 distinct banks
+template <typename T>
 __host__ __device__ __forceinline__ int row_ld(int dims) {
-  return ((((dims + 15) & ~15) * 2 / 16) | 1) * 16;
+  constexpr int k = k_dims<T>();
+  return ((((dims + k - 1) & -k) * static_cast<int>(sizeof(T)) / 16) | 1) * 16;
 }
 
 // Dynamic shared memory of the tensor-core kernel, in bytes from its start;
@@ -169,16 +222,19 @@ struct MmaLayout {
       bytes;
 };
 
+template <typename T>
 __host__ __device__ __forceinline__ MmaLayout mma_layout(int qs, int D,
                                                          int kp, int mode) {
   MmaLayout L;
-  L.x_ld = row_ld(D < kSlab ? D : kSlab);
-  L.q_ld = row_ld(D);
+  constexpr int slab = slab_dims<T>();
+  L.x_ld = row_ld<T>(D < slab ? D : slab);
+  L.q_ld = row_ld<T>(D);
   const int mt = m_tiles(qs);
   const bool reg = kp <= ndb::kRegK;
   const bool rows = mode == kExact;
+  const int stages = reg ? ring_stages<T, true>() : ring_stages<T, false>();
   long long at = 0;
-  L.ring = take(at, static_cast<long long>(kStages) * kRows * L.x_ld);
+  L.ring = take(at, static_cast<long long>(stages) * kRows * L.x_ld);
   L.q = take(at, 16LL * mt * L.q_ld);
   L.qsq = take(at, 4LL * 16 * mt);
   L.xsq = take(at, 2 * 4LL * kRows);
@@ -206,26 +262,33 @@ __host__ __device__ __forceinline__ MmaLayout mma_layout(int qs, int D,
   return L;
 }
 
+__device__ __forceinline__ float2 pair_f32(const __nv_bfloat162& v) {
+  return __bfloat1622float2(v);
+}
+__device__ __forceinline__ float2 pair_f32(const float2& v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(float v) { return v; }
+
 // |x|^2 over the `D` dims of rows [0, rows) of a staged slab into xsq
 // (add: onto the earlier slabs' sums): 4 threads a row, each summing every
-// 4th bf16 pair, then two xor shuffles.
+// 4th pair of the stored values in f32, then two xor shuffles.
+template <typename T>
 __device__ __forceinline__ void row_norms(const unsigned char* stage,
                                           int x_ld, int rows, int D,
                                           float* xsq, bool add) {
   static_assert(kThreads == 4 * kRows, "4 threads a row");
+  using Pair = std::conditional_t<is_bf16<T>(), __nv_bfloat162, float2>;
   const int r = threadIdx.x >> 2, part = threadIdx.x & 3;
   float s = 0.f;
   if (r < rows) {
-    const __nv_bfloat162* x =
-        reinterpret_cast<const __nv_bfloat162*>(stage + r * x_ld);
+    const Pair* x = reinterpret_cast<const Pair*>(stage + r * x_ld);
     for (int i = part; i < D / 2; i += 4) {
-      const float2 v = __bfloat1622float2(x[i]);
+      const float2 v = pair_f32(x[i]);
       s = fmaf(v.x, v.x, s);
       s = fmaf(v.y, v.y, s);
     }
     if ((D & 1) && part == 0) {
-      const float v =
-          __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(x)[D - 1]);
+      const float v = to_f32(reinterpret_cast<const T*>(x)[D - 1]);
       s = fmaf(v, v, s);
     }
   }
@@ -234,21 +297,38 @@ __device__ __forceinline__ void row_norms(const unsigned char* stage,
   if (part == 0) xsq[r] = add ? xsq[r] + s : s;
 }
 
+// an f32 value in the store type (bf16: rounded to nearest)
+template <typename T>
+__device__ __forceinline__ T from_f32(float v) {
+  if constexpr (is_bf16<T>()) return __float2bfloat16_rn(v);
+  else return v;
+}
+
+// four f32 values in the store type at dst (8 bytes bf16, 16 bytes f32)
+template <typename T>
+__device__ __forceinline__ void store4(unsigned char* dst, float4 v) {
+  if constexpr (is_bf16<T>())
+    *reinterpret_cast<uint2*>(dst) =
+        make_uint2(ndb::pack_bf16(v.x, v.y), ndb::pack_bf16(v.z, v.w));
+  else
+    *reinterpret_cast<float4*>(dst) = v;
+}
+
 // Rows [c0, min(c0 + kRows, n)), dims [d0, d0 + width) of the [*, D] rows
 // at `src` into a ring stage of rows x_ld bytes apart, width = k.per_row
-// pieces: 16-byte cp.async copies (vec8: D a multiple of 8 and `src`
-// 16-byte aligned), else element by element. `pad` more columns are
+// pieces: 16-byte cp.async copies (vec: D a multiple of vec_dims and
+// `src` 16-byte aligned), else element by element. `pad` more columns are
 // zeroed in every row of the stage (the last slab's tail to a multiple
-// of 16, which an earlier, wider slab may have filled).
-__device__ __forceinline__ void stage_slab(unsigned char* dst,
-                                           const __nv_bfloat16* src, int c0,
-                                           int n, int D, int d0, int x_ld,
-                                           bool vec8, const ndb::Copier& k,
-                                           int pad) {
+// of the k-step, which an earlier, wider slab may have filled).
+template <typename T>
+__device__ __forceinline__ void stage_slab(unsigned char* dst, const T* src,
+                                           int c0, int n, int D, int d0,
+                                           int x_ld, bool vec,
+                                           const ndb::Copier& k, int pad) {
   const int rows = min(kRows, n - c0);
-  const __nv_bfloat16* s = src + static_cast<long long>(c0) * D + d0;
+  const T* s = src + static_cast<long long>(c0) * D + d0;
   int r = k.r0, c = k.c0;
-  if (vec8) {
+  if (vec) {
     for (; r < rows; r += k.dr, c += k.dc) {
       if (c >= k.per_row) {
         c -= k.per_row;
@@ -256,7 +336,7 @@ __device__ __forceinline__ void stage_slab(unsigned char* dst,
         if (r >= rows) break;
       }
       ndb::cp_async16(dst + r * x_ld + c * 16,
-                      s + static_cast<long long>(r) * D + 8 * c);
+                      s + static_cast<long long>(r) * D + vec_dims<T>() * c);
     }
   } else {
     for (; r < rows; r += k.dr, c += k.dc) {
@@ -265,33 +345,36 @@ __device__ __forceinline__ void stage_slab(unsigned char* dst,
         ++r;
         if (r >= rows) break;
       }
-      reinterpret_cast<__nv_bfloat16*>(dst + r * x_ld)[c] =
+      reinterpret_cast<T*>(dst + r * x_ld)[c] =
           s[static_cast<long long>(r) * D + c];
     }
   }
   if (pad > 0) {
-    const int w0 = vec8 ? 8 * k.per_row : k.per_row;
+    const int w0 = vec ? vec_dims<T>() * k.per_row : k.per_row;
     for (int i = threadIdx.x; i < kRows * pad; i += kThreads) {
       const int rr = i / pad;
-      reinterpret_cast<__nv_bfloat16*>(dst + rr * x_ld)[w0 + i - rr * pad] =
-          __float2bfloat16_rn(0.f);
+      reinterpret_cast<T*>(dst + rr * x_ld)[w0 + i - rr * pad] = from_f32<T>(0.f);
     }
   }
 }
 
-// The bf16 store's kernel: one block per sub-tile of qs queries. kReg:
-// kp <= kRegK, the lists in registers (<= 128 registers, two blocks an
-// SM); else in shared memory.
-template <int kMode, bool kReg>
+// The kernel over a store of T (bf16 or float): one block per sub-tile of
+// qs queries. kReg: kp <= kRegK, the lists in registers (<= 128
+// registers, two blocks an SM); else in shared memory.
+template <typename T, int kMode, bool kReg>
 __global__ void __launch_bounds__(kThreads, kReg ? 2 : 1)
 grouped_scan_mma_kernel(const float* __restrict__ qpad,
-                        const __nv_bfloat16* __restrict__ vecs,
+                        const T* __restrict__ vecs,
                         const int* __restrict__ tile_off,
                         const int* __restrict__ tile_cnt,
                         float* __restrict__ out_d, int* __restrict__ out_i,
                         int sub_per_tile, int qs, int D, long long n_rows,
-                        int kp, int metric_ip, int pb, int vec8) {
+                        int kp, int metric_ip, int pb, int vec) {
   constexpr bool kRowsKept = kMode == kExact;
+  constexpr bool kBf16 = is_bf16<T>();
+  constexpr int kSlab = slab_dims<T>();      // dims a ring stage holds
+  constexpr int kStages = ring_stages<T, kReg>();
+  constexpr int kK = k_dims<T>();            // dims a k-step
   using K = std::conditional_t<kRowsKept, float, int>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -318,7 +401,7 @@ grouped_scan_mma_kernel(const float* __restrict__ qpad,
   if constexpr (kRowsKept) kFill = FLT_MAX;
   else kFill = kIntFill;
 
-  const MmaLayout L = mma_layout(qs, D, kp, kMode);
+  const MmaLayout L = mma_layout<T>(qs, D, kp, kMode);
   const int x_ld = L.x_ld, q_ld = L.q_ld;
   unsigned char* ring = smem + L.ring;
   unsigned char* q_s = smem + L.q;
@@ -344,7 +427,7 @@ grouped_scan_mma_kernel(const float* __restrict__ qpad,
   const int mt = warp / wpm, rb = warp % wpm;
   const int wr0 = rb * nt * 8;               // the warp's first chunk row
   const bool live = mt * 16 < qs;            // its m-tile holds a query
-  const int dp = (D + 15) & ~15, nks = dp >> 4;
+  const int dp = (D + kK - 1) & -kK, nks = dp >> (kBf16 ? 4 : 3);
   const bool l2 = metric_ip == 0;
   const int nch = (cnt + kRows - 1) / kRows;
   // the ring holds one slab of kSlab dims of a chunk's rows a stage:
@@ -352,7 +435,7 @@ grouped_scan_mma_kernel(const float* __restrict__ qpad,
   const int nsl = (D + kSlab - 1) / kSlab, nst = nch * nsl;
   const int sw = min(D, kSlab);           // dims of every slab but the last
   const int lw = D - (nsl - 1) * kSlab;   // dims of the last
-  const __nv_bfloat16* src = vecs + static_cast<long long>(off) * D;
+  const T* src = vecs + static_cast<long long>(off) * D;
   auto stage_of = [&](int k) { return ring + (k % kStages) * kRows * x_ld; };
   // chunk c closes a blockmin segment, or the list
   auto closes = [&](int c) {
@@ -366,12 +449,12 @@ grouped_scan_mma_kernel(const float* __restrict__ qpad,
     if (ik < nst) {
       const int ic = nsl == 1 ? ik : ik / nsl, isl = ik - ic * nsl;
       const int w = isl == nsl - 1 ? lw : sw;
-      const int per = vec8 ? w / 8 : w;
+      const int per = vec ? w / vec_dims<T>() : w;
       stage_slab(stage_of(ik), src, ic * kRows, cnt, D, isl * kSlab, x_ld,
-                 vec8 != 0,
-                 per == kSlab / 8 ? ndb::copier<kThreads>(kSlab / 8)
-                                  : ndb::copier<kThreads>(per),
-                 ((w + 15) & ~15) - w);
+                 vec != 0,
+                 per == kSlabBytes / 16 ? ndb::copier<kThreads>(kSlabBytes / 16)
+                                        : ndb::copier<kThreads>(per),
+                 ((w + kK - 1) & -kK) - w);
       ++ik;
     }
     ndb::cp_async_commit();
@@ -380,9 +463,9 @@ grouped_scan_mma_kernel(const float* __restrict__ qpad,
   // the ring's first stages fill while the queries are staged
 #pragma unroll
   for (int k = 0; k < kStages - 1; ++k) stage_next();
-  // the queries rounded to bf16, zero past qs and D (4 values a piece
-  // where D % 4 == 0, no division in the loop); |q|^2 from the f32 query;
-  // empty lists
+  // the queries rounded to the store type, zero past qs and D (4 values a
+  // piece where D % 4 == 0, no division in the loop); |q|^2 from the f32
+  // query; empty lists
   const float* qg = qpad + qbase * D;
   if (D % 4 == 0) {
     const int per = dp / 4;
@@ -397,16 +480,13 @@ grouped_scan_mma_kernel(const float* __restrict__ qpad,
       if (r < qs && 4 * c < D)
         v = *reinterpret_cast<const float4*>(
             qg + static_cast<long long>(r) * D + 4 * c);
-      *reinterpret_cast<uint2*>(q_s + r * q_ld + 8 * c) =
-          make_uint2(ndb::pack_bf16(v.x, v.y), ndb::pack_bf16(v.z, v.w));
+      store4<T>(q_s + r * q_ld + 4 * static_cast<int>(sizeof(T)) * c, v);
     }
   } else {
     for (int i = tid; i < 16 * mtn * dp; i += kThreads) {
       const int r = i / dp, c = i - r * dp;
-      const float v =
-          r < qs && c < D ? qg[static_cast<long long>(r) * D + c] : 0.f;
-      reinterpret_cast<__nv_bfloat16*>(q_s + r * q_ld)[c] =
-          __float2bfloat16_rn(v);
+      reinterpret_cast<T*>(q_s + r * q_ld)[c] = from_f32<T>(
+          r < qs && c < D ? qg[static_cast<long long>(r) * D + c] : 0.f);
     }
   }
   for (int qi = warp; qi < 16 * mtn; qi += kWarps) {
@@ -433,19 +513,21 @@ grouped_scan_mma_kernel(const float* __restrict__ qpad,
   ndb::cp_async_wait<kStages - 2>();         // step 0 has landed
   __syncthreads();
   if (l2 && NDB_GROUPED_CUT < 2)
-    row_norms(ring, x_ld, min(kRows, cnt), sw, xsq_s, false);
+    row_norms<T>(ring, x_ld, min(kRows, cnt), sw, xsq_s, false);
 
-  // A fragments of the warp's 16 queries, k-steps [ks0, ks0 + kKsReg)
+  // bf16: A fragments of the warp's 16 queries, k-steps [ks0, ks0 + kKsReg)
   uint32_t a[kKsReg][4];
   auto load_a = [&](int ks0) {
-    const int r = mt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-    const auto* qr = reinterpret_cast<const __nv_bfloat16*>(q_s + r * q_ld);
+    if constexpr (kBf16) {
+      const int r = mt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+      const auto* qr = reinterpret_cast<const bf16*>(q_s + r * q_ld);
 #pragma unroll
-    for (int kk = 0; kk < kKsReg; ++kk)
-      if (ks0 + kk < nks)
-        ndb::ldmatrix_x4(a[kk], qr + (ks0 + kk) * 16 + (lane >> 4) * 8);
+      for (int kk = 0; kk < kKsReg; ++kk)
+        if (ks0 + kk < nks)
+          ndb::ldmatrix_x4(a[kk], qr + (ks0 + kk) * 16 + (lane >> 4) * 8);
+    }
   };
-  if (nks <= kKsReg) load_a(0);
+  if (kBf16 && nks <= kKsReg) load_a(0);
   // after `regroup`, this thread scores query qv against rows
   // wr0 + 8 j + 4 s + u (u < 4) of each n-tile j; lane t ^ 2 of its warp
   // holds the query's other rows
@@ -478,8 +560,64 @@ grouped_scan_mma_kernel(const float* __restrict__ qpad,
       for (int j = 0; j < kNtMax; ++j)
         acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
     }
-    const int ks0 = sl * kKsReg;
-    const int n = min(nks - ks0, kKsReg);    // the slab's k-steps
+    constexpr int kKs = slab_steps<T>();
+    const int ks0 = sl * kKs;
+    const int n = min(nks - ks0, kKs);       // the slab's k-steps
+    if constexpr (!kBf16) {
+      // f32: the A fragment (queries g, g + 8 x dims t, t + 4) and each
+      // n-tile's B fragment (row g x dims t, t + 4) split to tf32 hi/lo as
+      // they are loaded, then three mma into each n-tile's accumulator
+      // (lo.hi + hi.lo + hi.hi), issued pass by pass over the n-tiles so
+      // that no mma waits on the one before it. The n-tiles a warp takes
+      // are a template argument: unrolled without guards, the k-steps'
+      // loads, splits and mma interleave.
+      const float* q0 =
+          reinterpret_cast<const float*>(q_s + (mt * 16 + g) * q_ld) +
+          ks0 * 8 + t;
+      const float* q8 = reinterpret_cast<const float*>(
+                            reinterpret_cast<const unsigned char*>(q0) +
+                            8 * q_ld);
+      const float* xr =
+          reinterpret_cast<const float*>(stg + (wr0 + g) * x_ld) + t;
+      auto run = [&](auto ntc) {
+        constexpr int kNt = decltype(ntc)::value;
+        auto step = [&](int kk) {
+          uint32_t ah[4], al[4], bh[kNt][2], bl[kNt][2];
+          ndb::split_tf32(q0[8 * kk], ah[0], al[0]);
+          ndb::split_tf32(q8[8 * kk], ah[1], al[1]);
+          ndb::split_tf32(q0[8 * kk + 4], ah[2], al[2]);
+          ndb::split_tf32(q8[8 * kk + 4], ah[3], al[3]);
+#pragma unroll
+          for (int j = 0; j < kNt; ++j) {
+            const float* xj = reinterpret_cast<const float*>(
+                                  reinterpret_cast<const unsigned char*>(xr) +
+                                  8 * j * x_ld) +
+                              8 * kk;
+            ndb::split_tf32(xj[0], bh[j][0], bl[j][0]);
+            ndb::split_tf32(xj[4], bh[j][1], bl[j][1]);
+          }
+#pragma unroll
+          for (int j = 0; j < kNt; ++j)
+            ndb::mma_tf32(acc[j], al, bh[j][0], bh[j][1]);
+#pragma unroll
+          for (int j = 0; j < kNt; ++j)
+            ndb::mma_tf32(acc[j], ah, bl[j][0], bl[j][1]);
+#pragma unroll
+          for (int j = 0; j < kNt; ++j)
+            ndb::mma_tf32(acc[j], ah, bh[j][0], bh[j][1]);
+        };
+        if (n == kKs) {
+#pragma unroll
+          for (int kk = 0; kk < kKs; ++kk) step(kk);
+        } else {
+          for (int kk = 0; kk < n; ++kk) step(kk);
+        }
+      };
+      if (nt == 4) run(std::integral_constant<int, 4>());
+      else if (nt == 2) run(std::integral_constant<int, 2>());
+      else run(std::integral_constant<int, 1>());
+      return;
+    }
     if (nks > kKsReg) load_a(ks0);
 #pragma unroll
     for (int kk = 0; kk < kKsReg; kk += 2) {
@@ -488,7 +626,7 @@ grouped_scan_mma_kernel(const float* __restrict__ qpad,
         for (int j = 0; j < kNtMax; ++j) {
           if (j < nt) {
             // matrix i = lane / 8: rows of n-tile j, dims kk * 16 + 8 i
-            const auto* p = reinterpret_cast<const __nv_bfloat16*>(
+            const auto* p = reinterpret_cast<const bf16*>(
                                 stg + (wr0 + 8 * j + (lane & 7)) * x_ld) +
                             kk * 16 + (lane >> 3) * 8;
             if (kk + 1 < n) {
@@ -726,7 +864,7 @@ grouped_scan_mma_kernel(const float* __restrict__ qpad,
     const int s1 = sl + 1 < nsl ? sl + 1 : 0, c1 = s1 ? c : c + 1;
     if (NDB_GROUPED_CUT < 2) {
       if (l2 && k + 1 < nst)
-        row_norms(stage_of(k + 1), x_ld, min(kRows, cnt - c1 * kRows),
+        row_norms<T>(stage_of(k + 1), x_ld, min(kRows, cnt - c1 * kRows),
                   s1 == nsl - 1 ? lw : sw, xsq_s + (c1 & 1) * kRows, s1 > 0);
       if constexpr (!kReg)
         if (c > 0 && sl == 0) smem_select(c - 1);
@@ -818,64 +956,83 @@ grouped_scan_mma_kernel(const float* __restrict__ qpad,
   }
 }
 
-// The tensor-core kernel of a mode, lists in registers or not.
-using MmaFn = void (*)(const float*, const __nv_bfloat16*, const int*,
-                       const int*, float*, int*, int, int, int, long long,
-                       int, int, int, int);
+// The kernel over a store of T for a mode, lists in registers or not.
+template <typename T>
+using MmaFn = void (*)(const float*, const T*, const int*, const int*,
+                       float*, int*, int, int, int, long long, int, int, int,
+                       int);
 
-MmaFn mma_kernel(int mode, bool reg) {
+template <typename T>
+MmaFn<T> mma_kernel(int mode, bool reg) {
   if (mode == kExact)
-    return reg ? grouped_scan_mma_kernel<kExact, true>
-               : grouped_scan_mma_kernel<kExact, false>;
+    return reg ? grouped_scan_mma_kernel<T, kExact, true>
+               : grouped_scan_mma_kernel<T, kExact, false>;
   if (mode == kPacked)
-    return reg ? grouped_scan_mma_kernel<kPacked, true>
-               : grouped_scan_mma_kernel<kPacked, false>;
-  return reg ? grouped_scan_mma_kernel<kBlockMin, true>
-             : grouped_scan_mma_kernel<kBlockMin, false>;
+    return reg ? grouped_scan_mma_kernel<T, kPacked, true>
+               : grouped_scan_mma_kernel<T, kPacked, false>;
+  return reg ? grouped_scan_mma_kernel<T, kBlockMin, true>
+             : grouped_scan_mma_kernel<T, kBlockMin, false>;
+}
+
+long long smem_bytes(int qs, int D, int kp, int mode, bool store_bf16) {
+  return store_bf16 ? mma_layout<bf16>(qs, D, kp, mode).bytes
+                    : mma_layout<float>(qs, D, kp, mode).bytes;
+}
+
+template <typename T>
+int launch(const void* qpad, const void* vecs, const void* tile_off,
+           const void* tile_cnt, void* out_d, void* out_i, int n_sub,
+           int sub_per_tile, int qs, int D, long long n_rows, int kp,
+           int metric_ip, int mode, int pb, void* stream) {
+  const size_t smem = static_cast<size_t>(mma_layout<T>(qs, D, kp, mode).bytes);
+  const MmaFn<T> f = mma_kernel<T>(mode, kp <= ndb::kRegK);
+  cudaError_t err = cudaFuncSetAttribute(
+      reinterpret_cast<const void*>(f),
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int vec = D % vec_dims<T>() == 0 &&
+                  reinterpret_cast<uintptr_t>(vecs) % 16 == 0;
+  f<<<n_sub, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(qpad), static_cast<const T*>(vecs),
+      static_cast<const int*>(tile_off), static_cast<const int*>(tile_cnt),
+      static_cast<float*>(out_d), static_cast<int*>(out_i), sub_per_tile, qs,
+      D, n_rows, kp, metric_ip, pb, vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory one block needs, in bytes (-1: not this
-// library's store). mode: 0 exact, 1 packed, 2 blockmin.
+// Dynamic shared memory one block needs, in bytes. mode: 0 exact, 1
+// packed, 2 blockmin; store_bf16: 1 bf16 rows, 0 f32 rows.
 long long ivf_grouped_scan_smem_bytes(int qs, int D, int kp, int mode,
                                       int store_bf16) {
-  return store_bf16 ? mma_layout(qs, D, kp, mode).bytes : -1;
+  return smem_bytes(qs, D, kp, mode, store_bf16 != 0);
 }
 
-// qpad [n_sub * qs, D] f32; vecs [n_rows, D] bf16 (store_bf16 must be 1;
-// the f32 store's kernel is ivf_scan_grouped_f32.cu);
-// tile_off/tile_cnt [n_sub / sub_per_tile] int32; out_d/out_i
-// [n_sub * qs, kp]. mode 1 and 2 take pos_bits pb in [1, 30]. Launches on
-// `stream` and returns the CUDA error code of the launch (0 = success).
+// qpad [n_sub * qs, D] f32; vecs [n_rows, D] bf16 (store_bf16 1) or f32
+// (store_bf16 0); tile_off/tile_cnt [n_sub / sub_per_tile] int32;
+// out_d/out_i [n_sub * qs, kp]. mode 1 and 2 take pos_bits pb in [1, 30].
+// Launches on `stream` and returns the CUDA error code of the launch
+// (0 = success).
 int ivf_grouped_scan(const void* qpad, const void* vecs, const void* tile_off,
                      const void* tile_cnt, void* out_d, void* out_i, int n_sub,
                      int sub_per_tile, int qs, int D, long long n_rows, int kp,
                      int metric_ip, int store_bf16, int mode, int pb,
                      void* stream) {
   if (n_sub <= 0) return 0;
-  if (!store_bf16 || qs < 1 || qs > kQsMax || kp < 1 || D < 1 ||
-      sub_per_tile < 1 || mode < kExact || mode > kBlockMin ||
+  if (qs < 1 || qs > kQsMax || kp < 1 || D < 1 || sub_per_tile < 1 ||
+      mode < kExact || mode > kBlockMin ||
       (mode != kExact && (pb < 1 || pb > 30)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem =
-      static_cast<size_t>(mma_layout(qs, D, kp, mode).bytes);
-  const MmaFn f = mma_kernel(mode, kp <= ndb::kRegK);
-  cudaError_t err = cudaFuncSetAttribute(
-      reinterpret_cast<const void*>(f),
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int vec8 =
-      D % 8 == 0 && reinterpret_cast<uintptr_t>(vecs) % 16 == 0 ? 1 : 0;
-  f<<<n_sub, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(qpad),
-      static_cast<const __nv_bfloat16*>(vecs),
-      static_cast<const int*>(tile_off), static_cast<const int*>(tile_cnt),
-      static_cast<float*>(out_d), static_cast<int*>(out_i), sub_per_tile, qs,
-      D, n_rows, kp, metric_ip, pb, vec8);
-  return static_cast<int>(cudaGetLastError());
+  return store_bf16
+             ? launch<bf16>(qpad, vecs, tile_off, tile_cnt, out_d, out_i,
+                            n_sub, sub_per_tile, qs, D, n_rows, kp, metric_ip,
+                            mode, pb, stream)
+             : launch<float>(qpad, vecs, tile_off, tile_cnt, out_d, out_i,
+                             n_sub, sub_per_tile, qs, D, n_rows, kp,
+                             metric_ip, mode, pb, stream);
 }
 
 }  // extern "C"

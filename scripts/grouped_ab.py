@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
-"""A/B of the grouped-scan kernel against its first (FMA) design.
+"""A/B of the grouped-scan kernel against another source of it.
 
     mkdir -p _archive/g2
     git show 541d804:neurondb_tpu_torch/csrc/ivf_scan_grouped.cu > _archive/g2/ivf_scan_grouped.cu
     git show 541d804:neurondb_tpu_torch/csrc/topk_select.cuh > _archive/g2/topk_select.cuh
-    python3 scripts/grouped_ab.py [--stages] _archive/g2/ivf_scan_grouped.cu
+    python3 scripts/grouped_ab.py [--stages] [--store f32] _archive/g2/ivf_scan_grouped.cu
 
 Builds ``neurondb_tpu_torch/csrc/ivf_scan_grouped.cu`` (through the
-package's build helper) and the other source (same nvcc flags; a
-``topk_select.cuh`` beside it wins over the package's), which must keep
-the first design's C interface: ``ivf_grouped_scan`` as the package's and
-``ivf_grouped_scan_smem_bytes(qs, D, kp, mode)``. Then, on one card, for
-the bf16 store:
+package's build helper) and the other source (same nvcc flags; a header
+beside it wins over the package's), which must keep the package's
+``ivf_grouped_scan`` entry; its ``ivf_grouped_scan_smem_bytes`` takes
+(qs, D, kp, mode), as in the first design, or (qs, D, kp, mode,
+store_bf16), read from the source: the first (FMA) design (541d804),
+the bf16-only tensor-core kernel (3aae37d), or with ``--store f32`` the
+f32 store's FMA kernel (``ivf_scan_grouped_f32.cu`` at 3aae37d).
+Then, on one card, for the bf16 store (``--store f32``: the f32 store):
 
 - both builds' ptxas lines;
 - both kernels over the cases of ``chip_smoke.phase_kernel`` (ragged
@@ -34,6 +37,7 @@ Needs one CUDA card and nvcc; exits non-zero without them.
 
 import ctypes
 import os
+import re
 import sys
 import tempfile
 
@@ -53,11 +57,26 @@ def _ptxas(text):
             if "registers" in ln or "spill" in ln or "entry function" in ln]
 
 
+def _smem_args(path):
+    """The number of arguments of the source's ivf_grouped_scan_smem_bytes."""
+    with open(path) as f:
+        m = re.search(r"ivf_grouped_scan_smem_bytes\(([^)]*)\)", f.read())
+    if not m:
+        raise SystemExit(f"[ab] {path}: no ivf_grouped_scan_smem_bytes")
+    return m[1].count(",") + 1
+
+
 def main(argv):
     stages = "--stages" in argv
     argv = [a for a in argv if a != "--stages"]
-    if len(argv) != 1:
+    store = "bf16"
+    if "--store" in argv:
+        i = argv.index("--store")
+        store = argv[i + 1]
+        del argv[i:i + 2]
+    if len(argv) != 1 or store not in ("bf16", "f32"):
         raise SystemExit(__doc__)
+    bf16 = store == "bf16"
     import torch
     from neurondb_tpu_torch.ops.kernels import _build
     from neurondb_tpu_torch.ops.kernels import ivf_scan_grouped as G
@@ -67,7 +86,8 @@ def main(argv):
     with tempfile.TemporaryDirectory() as tmp:
         pkg = str(_build.CSRC / "ivf_scan_grouped.cu")
         # name -> (source, flags, arguments of its smem_bytes)
-        builds = {"old": (os.path.abspath(argv[0]), (), 4)}
+        old = os.path.abspath(argv[0])
+        builds = {"old": (old, (), _smem_args(old))}
         for cut in ((1, 2) if stages else ()):
             builds[f"cut {cut}"] = (pkg, (f"-DNDB_GROUPED_CUT={cut}",), 5)
         jobs = [(src, os.path.join(tmp, f"lib{j}.so"), flags)
@@ -94,7 +114,7 @@ def main(argv):
             widest qs its shared memory allows, as its wrapper picks."""
             lib, nargs = libs[name]
             T, D = toff.shape[0], qpad.shape[1]
-            extra = (1,) if nargs == 5 else ()
+            extra = (int(bf16),) if nargs == 5 else ()
             qs = qt
             while qs % 2 == 0 and (
                     qs > G.QS_MAX or lib.ivf_grouped_scan_smem_bytes(
@@ -105,7 +125,7 @@ def main(argv):
             args = (qpad.data_ptr(), vecs.data_ptr(), toff.data_ptr(),
                     tcnt.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
                     T * (qt // qs), qt // qs, qs, D, vecs.shape[0], kp,
-                    int(metric == "ip"), 1, mode, pb,
+                    int(metric == "ip"), int(bf16), mode, pb,
                     torch.cuda.current_stream().cuda_stream)
 
             def launch():
@@ -134,8 +154,8 @@ def main(argv):
 
         rng = np.random.default_rng(0)
         lens = [0, 3, 31, 1024, 1025, 2500, 700, 64, 1, 333]
-        vecs, offsets, counts = CS._layout(rng, lens, CS.DIM, torch.bfloat16,
-                                           dev)
+        vecs, offsets, counts = CS._layout(rng, lens, CS.DIM,
+                                           CS._store_dtype(store), dev)
         pb_small = max(11, (max(lens) - 1).bit_length())
         n_cases = 0
         for mode, (packed, bmin) in CS.MODES.items():
@@ -158,11 +178,12 @@ def main(argv):
         print(f"[ab] {n_cases} small cases compared")
 
         lens = rng.multinomial(CS.N_ROWS, np.full(CS.NLISTS, 1.0 / CS.NLISTS))
-        vecs, offsets, counts = CS._layout(rng, lens, CS.DIM, torch.bfloat16,
-                                           dev)
+        vecs, offsets, counts = CS._layout(rng, lens, CS.DIM,
+                                           CS._store_dtype(store), dev)
         pb = max(11, int(lens.max() - 1).bit_length())
-        print(f"[ab] timings on {smi}: medians of {TURNS} alternating turns "
-              f"of {REPS} calls, kernels launched through ctypes")
+        print(f"[ab] {store} store; timings on {smi}: medians of {TURNS} "
+              f"alternating turns of {REPS} calls, kernels launched "
+              f"through ctypes")
         for batch, nprobe, npad in ((CS.BATCH, 8, 16), (1024, 4, 4)):
             q = torch.randn((batch, CS.DIM), device=dev)
             probes = CS._probes(rng, batch, nprobe, npad, CS.NLISTS, dev)

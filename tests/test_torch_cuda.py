@@ -28,6 +28,24 @@ pytestmark = pytest.mark.cuda
 RTOL = ATOL = 1e-4
 
 
+def _atol(qpad, vd, rows, qt):
+    """The grouped kernel's absolute tolerance for each output entry:
+    ATOL on the bf16 store; on the f32 store (3xTF32 products)
+    G.F32_TERMS_TOL of |q|^2 + |x|^2 (tests/test_torch_grouped_tf32.py)."""
+    if vd.dtype == torch.bfloat16:
+        return torch.full(rows.shape, ATOL, device=rows.device)
+    T = rows.shape[0]
+    q = qpad.reshape(T, qt, 1, -1)
+    xsq = vd.float().pow(2).sum(-1)
+    terms = (q * q).sum(-1) + xsq[rows.clamp(min=0).long()]
+    return torch.where(rows >= 0, G.F32_TERMS_TOL * terms, 0.0)
+
+
+def _assert_within(got, want, atol, rtol):
+    bad = (got - want).abs() > atol + rtol * want.abs()
+    assert not bad.any(), (int(bad.sum()), (got - want).abs().max().item())
+
+
 @pytest.fixture()
 def dev():
     if not torch.cuda.is_available():
@@ -75,10 +93,21 @@ def test_kernel_matches_plain(dev, store, metric, kp, qt, dim):
                                   metric=metric)
     torch.cuda.synchronize()
     assert G.LAUNCHES == before + 1
-    torch.testing.assert_close(kd, pd[..., :kp], rtol=RTOL, atol=ATOL)
     # rows equal away from near-ties (f32 rounding, 1e-5 relative)
-    close = (pd[..., 1:] - pd[..., :-1]).abs() <= \
-        1e-5 * pd[..., 1:].abs().clamp(min=1)
+    band = 1e-5 * pd[..., 1:].abs().clamp(min=1)
+    if vd.dtype == torch.bfloat16:
+        torch.testing.assert_close(kd, pd[..., :kp], rtol=RTOL, atol=ATOL)
+    else:
+        # 3xTF32 sums that the tensor cores round toward zero: ip's -q.x
+        # near 0 cancels, and at D 768 and 1024 the kernel is off by up
+        # to ~5e-4 there, so the f32 store takes its own tolerance
+        # (tests/test_torch_grouped_tf32.py), in the tie band too
+        live = pd[..., :kp] < 1e30
+        assert torch.equal(kd < 1e30, live)
+        at = _atol(qpad, vd, pi, qt)
+        _assert_within(kd[live], pd[..., :kp][live], at[..., :kp][live], RTOL)
+        band = band + at[..., 1:]
+    close = (pd[..., 1:] - pd[..., :-1]).abs() <= band
     tie = torch.zeros_like(pi, dtype=torch.bool)
     tie[..., 1:] |= close
     tie[..., :-1] |= close
@@ -86,6 +115,40 @@ def test_kernel_matches_plain(dev, store, metric, kp, qt, dim):
     bad = ok.logical_not().nonzero()[:3].tolist()
     assert not bad, [(b, kd[tuple(b)].item(), pd[tuple(b)].item(),
                       ki[tuple(b)].item(), pi[tuple(b)].item()) for b in bad]
+
+
+@pytest.mark.parametrize("mode", ["exact", "packed", "blockmin"])
+@pytest.mark.parametrize("metric", ["sqeuclidean", "ip"])
+@pytest.mark.parametrize("kp,qt,dim", [(10, 64, 128), (100, 32, 13),
+                                       (1024, 16, 1024)])
+def test_f32_store_self_queries_within_terms_tol(dev, mode, metric, kp, qt,
+                                                 dim):
+    """The f32 store where |q|^2 + |x|^2 - 2 q.x cancels: every query of
+    every other tile is a row of the tile's own list (d = 0 at its own
+    row), so the tolerance's term G.F32_TERMS_TOL (|q|^2 + |x|^2) is what
+    holds the kernel there (tests/test_torch_grouped_tf32.py fixes it)."""
+    rng = np.random.default_rng(kp + qt + dim + 1)
+    vecs, offsets, counts = _layout(rng, [0, 3, 31, 1024, 1025, 2500, 77], dim)
+    vd = torch.from_numpy(vecs).to(dev)
+    qpad, toff, tcnt = _tiles(rng, dev, counts, offsets, 3 * qt, 6, qt, dim)
+    live_t = torch.nonzero(tcnt > 0).flatten()[::2]
+    rows = toff[live_t, None].long() + \
+        torch.arange(qt, device=dev) % tcnt[live_t, None].long()
+    qpad = qpad.view(-1, qt, dim).index_put((live_t,), vd[rows]).view(-1, dim)
+    pb = 0 if mode == "exact" else 12
+    kw = dict(kp=kp, qt=qt, metric=metric, pos_bits=pb,
+              block_min=mode == "blockmin")
+    kd, ki = G.grouped_probe_scan(qpad, vd, toff, tcnt, **kw)
+    pd, pi = G.grouped_scan_plain(qpad, vd, toff, tcnt, **kw)
+    torch.cuda.synchronize()
+    live = pd < 1e30
+    assert torch.equal(kd < 1e30, live)
+    step = 2.0 ** (pb - 24) if pb else 0.0
+    rtol = RTOL if mode == "exact" else 1e-3 + 2 * step
+    _assert_within(kd[live], pd[live], _atol(qpad, vd, pi, qt)[live], rtol)
+    if metric == "sqeuclidean":         # each self row found, at d ~ 0
+        own = ki[live_t][..., 0] == rows
+        assert bool(own.all()), int((~own).sum())
 
 
 def test_index_on_card_matches_cpu(dev):
@@ -124,17 +187,19 @@ def test_bf16_store_on_card(dev):
     assert iv.is_cuda and dv.dtype == torch.float32
 
 
+@pytest.mark.parametrize("store", ["bfloat16", "float32"])
 @pytest.mark.parametrize("block_min", [False, True])
 @pytest.mark.parametrize("metric", ["sqeuclidean", "ip"])
 @pytest.mark.parametrize("kp,qt", [(10, 64), (100, 32), (1024, 16)])
-def test_kernel_packed_modes_match_plain(dev, kp, qt, metric, block_min):
+def test_kernel_packed_modes_match_plain(dev, kp, qt, metric, block_min,
+                                         store):
     """Packed and blockmin keys: the kernel's f32 sums run in another
     order, so a key may round one step (2**(pb-24) relative) apart. Sorted
     values allclose at rtol 1e-3 + 2 * step (tests/test_pallas_kernels.py),
     and every kernel row carries its own distance to the key rounding."""
     rng = np.random.default_rng(kp + qt + block_min)
     vecs, offsets, counts = _layout(rng, [0, 3, 31, 1024, 1025, 2500, 77], 128)
-    vd = torch.from_numpy(vecs).to(dev, torch.bfloat16)
+    vd = torch.from_numpy(vecs).to(dev, getattr(torch, store))
     qpad, toff, tcnt = _tiles(rng, dev, counts, offsets, 3 * qt, 6, qt, 128)
     pb = 12
     kw = dict(kp=kp, qt=qt, metric=metric, pos_bits=pb, block_min=block_min)
@@ -146,34 +211,35 @@ def test_kernel_packed_modes_match_plain(dev, kp, qt, metric, block_min):
     step = 2.0 ** (pb - 24)
     live = pd < 1e30
     assert torch.equal(kd < 1e30, live)
-    torch.testing.assert_close(kd[live], pd[live], rtol=1e-3 + 2 * step,
-                               atol=ATOL)
+    _assert_within(kd[live], pd[live], _atol(qpad, vd, pi, qt)[live],
+                   1e-3 + 2 * step)
     T = toff.shape[0]
     q = qpad.reshape(T, qt, 1, -1).expand(-1, -1, kp, -1)[ki >= 0]
     x = vd[ki[ki >= 0].long()].float()
-    dots = (x * q.to(torch.bfloat16).float()).sum(-1)
+    dots = (x * q.to(vd.dtype).float()).sum(-1)
     own = -dots if metric == "ip" else torch.clamp(
         (q * q).sum(-1) + (x * x).sum(-1) - 2 * dots, min=0)
-    torch.testing.assert_close(kd[ki >= 0], own, rtol=RTOL + 2 * step,
-                               atol=ATOL)
+    _assert_within(kd[ki >= 0], own, _atol(qpad, vd, ki, qt)[ki >= 0],
+                   RTOL + 2 * step)
 
 
+@pytest.mark.parametrize("store", ["bfloat16", "float32"])
 @pytest.mark.parametrize("mode", ["exact", "packed", "blockmin"])
 @pytest.mark.parametrize("metric", ["sqeuclidean", "ip"])
 @pytest.mark.parametrize("dim", [128, 200, 13, 384, 768, 1024])
 @pytest.mark.parametrize("kp,qt", [(10, 64), (100, 32), (1024, 16)])
 def test_kernel_integer_data_matches_plain_bitwise(dev, kp, qt, dim, metric,
-                                                   mode):
-    """Integer-valued bf16 rows and queries: every product and sum is
-    exact on the tensor cores and in the plain version, so the kernel
-    equals grouped_scan_plain bit for bit, ties (many) included. D 13
-    takes the element copies and the zero padding to 16; D 200 and up
-    stage rows in 128-dim slabs, and D 384 and up fit fewer queries a
-    block."""
+                                                   mode, store):
+    """Integer-valued rows and queries: every product and sum is exact on
+    the tensor cores (bf16 products; 3xTF32, whose low parts are 0) and in
+    the plain version, so the kernel equals grouped_scan_plain bit for
+    bit, ties (many) included. D 13 takes the element copies and the zero
+    padding to the k-step; wider D stages rows in slabs, and D 384 and up
+    fit fewer queries a block."""
     rng = np.random.default_rng(kp + qt + dim)
     vecs, offsets, counts = _layout(rng, [0, 3, 31, 1024, 1025, 2500, 77], dim)
     vecs = np.round(vecs * 1.5).clip(-4, 4)
-    vd = torch.from_numpy(vecs).to(dev, torch.bfloat16)
+    vd = torch.from_numpy(vecs).to(dev, getattr(torch, store))
     qpad, toff, tcnt = _tiles(rng, dev, counts, offsets, 3 * qt, 6, qt, dim)
     qpad = (qpad * 1.5).round().clamp(-3, 3)
     kw = dict(kp=kp, qt=qt, metric=metric, pos_bits=0 if mode == "exact"
@@ -186,9 +252,10 @@ def test_kernel_integer_data_matches_plain_bitwise(dev, kp, qt, dim, metric,
     assert torch.equal(kd, pd) and torch.equal(ki, pi)
 
 
+@pytest.mark.parametrize("store", ["bfloat16", "float32"])
 @pytest.mark.parametrize("mode", ["exact", "packed", "blockmin"])
 @pytest.mark.parametrize("kp,qt", [(10, 64), (16, 16)])
-def test_kernel_top_rows_in_one_warp_bitwise(dev, kp, qt, mode):
+def test_kernel_top_rows_in_one_warp_bitwise(dev, kp, qt, mode, store):
     """Every query's nearest rows sit at chunk rows 0-7 (the first n-tile
     of one warp, half in each of its two lanes) and tie; integer data, so
     the kernel equals grouped_scan_plain bit for bit."""
@@ -198,7 +265,7 @@ def test_kernel_top_rows_in_one_warp_bitwise(dev, kp, qt, mode):
     far = rng.choice([-6, -5, -4, 4, 5, 6], (n, dim))
     rows = np.where((np.arange(n) % 64 < 8)[:, None], v, v + far)
     vd = torch.from_numpy(np.concatenate([rows, np.zeros((1024, dim))])
-                          .astype(np.float32)).to(dev, torch.bfloat16)
+                          .astype(np.float32)).to(dev, getattr(torch, store))
     qpad = torch.from_numpy((v + rng.integers(-1, 2, (3 * qt, dim)))
                             .astype(np.float32)).to(dev)
     toff = torch.zeros(3, dtype=torch.int32, device=dev)

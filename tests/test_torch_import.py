@@ -199,14 +199,27 @@ def test_build_other_uses_package_flags_and_own_headers_first(tmp_path,
 
 @pytest.mark.parametrize("bf16", [True, False])
 def test_grouped_sources_share_one_c_entry(bf16):
-    """The bf16 store's tensor-core kernel and the f32 store's FMA kernel
-    are two sources (two libraries, built in parallel) behind one C
-    interface; the wrapper picks the library by the store's type."""
-    src = (_build.CSRC / f"{G.SOURCES[bf16]}.cu").read_text()
+    """One source serves both stores: one library (one nvcc build) whose
+    two C entries take the store as an argument, with the bf16 store's
+    products by bf16 mma.sync and the f32 store's by 3xTF32 mma.sync; the
+    wrapper passes the store through to the shared-memory sizing."""
+    assert G.SOURCES == ("ivf_scan_grouped",)
+    assert not (_build.CSRC / "ivf_scan_grouped_f32.cu").exists()
+    src = (_build.CSRC / f"{G.SOURCES[0]}.cu").read_text()
     for entry in ("long long ivf_grouped_scan_smem_bytes(int qs, int D, "
                   "int kp, int mode,", "int ivf_grouped_scan(const void* qpad,"):
         assert entry in src
-    assert ("mma_bf16" in src) == bf16
+    for call in (("ndb::mma_bf16(",) if bf16 else
+                 ("ndb::split_tf32(", "ndb::mma_tf32(")):
+        assert call in src
+    seen = []
+
+    class Lib:
+        def ivf_grouped_scan_smem_bytes(self, qs, D, kp, mode, store_bf16):
+            seen.append(store_bf16)
+            return G.SMEM_MAX + 1 if qs > 16 else G.SMEM_MAX
+    assert G._pick_qs(Lib(), 64, 128, 10, 0, bf16) == 16
+    assert set(seen) == {int(bf16)}
 
 
 def test_library_name_follows_shared_headers(tmp_path, monkeypatch):
