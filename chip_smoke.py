@@ -280,7 +280,10 @@ before the store phase, on 5's 1M ``IVFFlatIndex``:
   the same 8,192 queries, apart from swaps inside a distance tie at the
   k boundary (``SVC_TIE_RTOL``), and recall@10 against exact; any
   answer not 200 fails; 256 binary requests under ``tracing.profile``,
-  whose Chrome trace must name the grouped kernel and the span;
+  whose Chrome trace must name the grouped kernel and the spans, and
+  whose ``tracing.summary()`` must hold the search path's spans
+  (``ndb.ivf.search``, ``ndb.as_batch``) and ``ivf.tuples``, recorded
+  under the profiler and at no other time;
 - MCP: ``initialize``, ``tools/list`` (the JAX package's 86 tools),
   ``resources/list``, 256 ``tools/call vector_search`` equal to a direct
   f32 search (ties as above), ``embed_text`` of 64 texts (flash launches
@@ -298,9 +301,9 @@ before the store phase, on 5's 1M ``IVFFlatIndex``:
 - the CLI: ``python -m neurondb_tpu_torch devices`` names the card,
   ``rest --port 0`` answers ``/health``;
 - last, ``rebalance_ivf`` on the index (imbalance and recall@10 before
-  and after; the index is not used after it); the spans'
-  ``tracing.summary()``, which ``prometheus_text()`` must carry, and the
-  phase's seconds and launches, which join the kernels line.
+  and after; the index is not used after it); the spans and counters
+  unchanged since the profile, and the phase's seconds and launches,
+  which join the kernels line.
 
 Any failed check ends the run with a non-zero exit. The line before the
 last is the kernels' JSON record; the last line is
@@ -4414,9 +4417,8 @@ def phase_services(index, qb, chosen, exact, smi):
             rows = slice(half * SVC_REQUESTS, (half + 1) * SVC_REQUESTS)
             st0 = dict(bat.stats)
             g0 = G.LAUNCHES
-            with tracing.trace(f"services.rest_{wire}"):
-                wall, ids, d, lat, status = _rest_load(port, q[rows], wire,
-                                                       SVC_CLIENTS)
+            wall, ids, d, lat, status = _rest_load(port, q[rows], wire,
+                                                   SVC_CLIENTS)
             bad_status = int((status != 200).sum())
             if bad_status:
                 fail(f"REST {wire}: {bad_status} answers not 200 "
@@ -4464,45 +4466,53 @@ def phase_services(index, qb, chosen, exact, smi):
             f"({100 * busy_us / wall_us:.1f}% of the span), grouped kernel "
             f"events {kern[:1]}")
         if (status != 200).any() or not kern or \
-                "services.profiled_rest" not in names:
+                not {"services.profiled_rest", "ndb.ivf.search",
+                     "ndb.as_batch"} <= names:
             fail("the profiled requests' Chrome trace lacks the grouped "
-                 "kernel or the span, or an answer was not 200")
+                 "kernel or a span, or an answer was not 200")
+        summ, counts = tracing.summary(), tracing.counters()
+        log(f"[services] spans under the profiler: {summ}; counters "
+            f"{counts}")
+        if {r["span"] for r in summ} != {"services.profiled_rest",
+                                          "ndb.ivf.search", "ndb.as_batch"} \
+                or counts.get("ivf.tuples", 0) <= 0:
+            fail("tracing: the profiled requests' spans or counters are "
+                 "not the search path's")
     finally:
         srv.stop()
     rest_launches = G.LAUNCHES
 
     # ---- MCP ----
-    with tracing.trace("services.mcp"):
-        mcp = MCPServer()
-        mcp.add_collection("sift", index)
+    mcp = MCPServer()
+    mcp.add_collection("sift", index)
 
-        def rpc(method, params=None):
-            out = json.loads(mcp.handle(json.dumps(
-                {"jsonrpc": "2.0", "id": 1, "method": method,
-                 "params": params or {}})))
-            if "error" in out:
-                fail(f"MCP {method} {params and params.get('name')}: "
-                     f"{out['error']}")
-            return out["result"]
+    def rpc(method, params=None):
+        out = json.loads(mcp.handle(json.dumps(
+            {"jsonrpc": "2.0", "id": 1, "method": method,
+             "params": params or {}})))
+        if "error" in out:
+            fail(f"MCP {method} {params and params.get('name')}: "
+                 f"{out['error']}")
+        return out["result"]
 
-        def call(name, args):
-            res = rpc("tools/call", {"name": name, "arguments": args})
-            return json.loads(res["content"][0]["text"])
+    def call(name, args):
+        res = rpc("tools/call", {"name": name, "arguments": args})
+        return json.loads(res["content"][0]["text"])
 
-        init = rpc("initialize")
-        tools = rpc("tools/list")["tools"]
-        resources = rpc("resources/list")["resources"]
-        t0 = time.perf_counter()
-        got = [call("vector_search", {"collection": "sift", "k": K,
-                                      "vector": qb[i].tolist()})
-               for i in range(SVC_MCP_CALLS)]
-        mcp_s = time.perf_counter() - t0
-        fa0 = sum(FA.LAUNCHES.values())
-        emb = np.asarray(call("embed_text", {"texts": [
-            f"document {i} about topic {i % 7}"
-            for i in range(SVC_EMBED_TEXTS)]})["embeddings"])
-        fa_embed = sum(FA.LAUNCHES.values()) - fa0
-        dev = call("device_info", {})
+    init = rpc("initialize")
+    tools = rpc("tools/list")["tools"]
+    resources = rpc("resources/list")["resources"]
+    t0 = time.perf_counter()
+    got = [call("vector_search", {"collection": "sift", "k": K,
+                                  "vector": qb[i].tolist()})
+           for i in range(SVC_MCP_CALLS)]
+    mcp_s = time.perf_counter() - t0
+    fa0 = sum(FA.LAUNCHES.values())
+    emb = np.asarray(call("embed_text", {"texts": [
+        f"document {i} about topic {i % 7}"
+        for i in range(SVC_EMBED_TEXTS)]})["embeddings"])
+    fa_embed = sum(FA.LAUNCHES.values()) - fa0
+    dev = call("device_info", {})
     m_equal, m_ties, m_bad = _served_rows(
         np.asarray([g["ids"] for g in got]),
         np.asarray([g["distances"] for g in got], np.float32),
@@ -4522,26 +4532,25 @@ def phase_services(index, qb, chosen, exact, smi):
              "launches or device_info wrong")
 
     # ---- the agent and a queue worker ----
-    with tracing.trace("services.agent"):
-        rt = AgentRuntime()
-        agent = rt.create_agent("chip", system_prompt="answer briefly")
-        sess = rt.create_session(agent.agent_id)
-        msgs = [rt.execute(sess.session_id, text) for text in (
-            "hello there", 'compute {"tool": "calc", "input": '
-            '{"expression": "6*7"}}', "thanks")]
-        calls = [c for m in msgs for c in m.tool_calls]
-        worker = QueueWorker()
-        svc = EmbeddingService()
-        worker.register("embed", lambda p: svc.embed_batch(p["texts"]))
-        jobs = [worker.enqueue("embed", {"texts": [f"job {j} text {i}"
-                                                   for i in range(16)]})
-                for j in range(8)]
-        worker.start()
-        try:
-            worker.drain(timeout=60.0)
-        finally:
-            worker.stop()
-        states = [worker.status(j).status for j in jobs]
+    rt = AgentRuntime()
+    agent = rt.create_agent("chip", system_prompt="answer briefly")
+    sess = rt.create_session(agent.agent_id)
+    msgs = [rt.execute(sess.session_id, text) for text in (
+        "hello there", 'compute {"tool": "calc", "input": '
+        '{"expression": "6*7"}}', "thanks")]
+    calls = [c for m in msgs for c in m.tool_calls]
+    worker = QueueWorker()
+    svc = EmbeddingService()
+    worker.register("embed", lambda p: svc.embed_batch(p["texts"]))
+    jobs = [worker.enqueue("embed", {"texts": [f"job {j} text {i}"
+                                               for i in range(16)]})
+            for j in range(8)]
+    worker.start()
+    try:
+        worker.drain(timeout=60.0)
+    finally:
+        worker.stop()
+    states = [worker.status(j).status for j in jobs]
     log(f"[services] agent: {len(rt.history(sess.session_id))} messages in "
         f"the session, calc calls {[c['result'] for c in calls]}, memory "
         f"{rt.memory._vecs[agent.agent_id].shape}; queue worker: 8 embed "
@@ -4552,25 +4561,24 @@ def phase_services(index, qb, chosen, exact, smi):
         fail("agent calc tool, agent memory or the embed jobs wrong")
 
     # ---- tenancy over a Client collection on the card ----
-    with tracing.trace("services.tenancy"):
-        col = Client(device="cuda").create_collection("tenant", dim)
-        tm = TenantManager()
-        tm.set_quota("acme", TenantQuota(max_vectors=2 * SVC_TENANT_ROWS,
-                                         max_qps=SVC_TENANT_QPS))
-        scoped = TenantScopedCollection(col, tm, "acme")
-        scoped.add(index._x[:SVC_TENANT_ROWS])
-        plain = col.search(qb[0], k=50)
-        tm.set_rls_policy("acme", lambda i, md: i % 2 == 0)
-        res = scoped.search(qb[0], k=50)
-        # the quota's window is one second: twice its count of searches
-        # cross at most one window edge
-        raised = False
-        for _ in range(2 * (SVC_TENANT_QPS + 1)):
-            try:
-                scoped.search(qb[0], k=50)
-            except QuotaExceeded:
-                raised = True
-                break
+    col = Client(device="cuda").create_collection("tenant", dim)
+    tm = TenantManager()
+    tm.set_quota("acme", TenantQuota(max_vectors=2 * SVC_TENANT_ROWS,
+                                     max_qps=SVC_TENANT_QPS))
+    scoped = TenantScopedCollection(col, tm, "acme")
+    scoped.add(index._x[:SVC_TENANT_ROWS])
+    plain = col.search(qb[0], k=50)
+    tm.set_rls_policy("acme", lambda i, md: i % 2 == 0)
+    res = scoped.search(qb[0], k=50)
+    # the quota's window is one second: twice its count of searches
+    # cross at most one window edge
+    raised = False
+    for _ in range(2 * (SVC_TENANT_QPS + 1)):
+        try:
+            scoped.search(qb[0], k=50)
+        except QuotaExceeded:
+            raised = True
+            break
     want = [r["id"] for r in plain if r["id"] % 2 == 0]
     log(f"[services] tenancy: {SVC_TENANT_ROWS} rows behind quotas, RLS keeps "
         f"{len(res)} of {len(plain)} ids (even ids only: "
@@ -4580,36 +4588,35 @@ def phase_services(index, qb, chosen, exact, smi):
         fail("tenancy: the RLS predicate or the QPS quota did not hold")
 
     # ---- data management on a 1M x 128 f32 store ----
-    with tracing.trace("services.data_management"):
-        store = nt.VectorStore(dim, device="cuda")
-        for s in range(0, n, STORE_BATCH):
-            store.add(index._x[s:s + STORE_BATCH])
-        tt = DM.TimeTravelStore(store)
-        t0 = time.perf_counter()
-        tt.snapshot("before")
-        snap_s = time.perf_counter() - t0
-        qs = qb[:STORE_NQ]
-        d0, i0 = tt.search_as_of("before", qs, k=K)
-        rng = np.random.default_rng(17)
-        # new rows right beside the queries, so the present answers move
-        store.add(np.repeat(qs, SVC_STORE_ADD // STORE_NQ, axis=0)
-                  + 0.01 * rng.standard_normal(
-                      (SVC_STORE_ADD, dim)).astype(np.float32))
-        dropped = rng.choice(n, n // 100, replace=False)
-        store.delete(dropped)
-        d1, i1 = tt.search_as_of("before", qs, k=K)
-        dnow, inow = store.search(qs, k=K)
-        cold = DM.ColdTier("int8")
-        ids_c = np.setdiff1d(np.arange(n), dropped)[:SVC_COLD]
-        orig = store.get(ids_c)
-        cold.demote(store, ids_c)
-        cold.restore(store, ids_c)
-        back = store.get(ids_c)
-        bound = np.abs(orig).max(1, keepdims=True) / 127.0 / 2 + 1e-6
-        cold_ok = bool((np.abs(back - orig) <= bound).all())
-        vac = DM.vacuum(store)
-        del store, tt
-        torch.cuda.empty_cache()
+    store = nt.VectorStore(dim, device="cuda")
+    for s in range(0, n, STORE_BATCH):
+        store.add(index._x[s:s + STORE_BATCH])
+    tt = DM.TimeTravelStore(store)
+    t0 = time.perf_counter()
+    tt.snapshot("before")
+    snap_s = time.perf_counter() - t0
+    qs = qb[:STORE_NQ]
+    d0, i0 = tt.search_as_of("before", qs, k=K)
+    rng = np.random.default_rng(17)
+    # new rows right beside the queries, so the present answers move
+    store.add(np.repeat(qs, SVC_STORE_ADD // STORE_NQ, axis=0)
+              + 0.01 * rng.standard_normal(
+                  (SVC_STORE_ADD, dim)).astype(np.float32))
+    dropped = rng.choice(n, n // 100, replace=False)
+    store.delete(dropped)
+    d1, i1 = tt.search_as_of("before", qs, k=K)
+    dnow, inow = store.search(qs, k=K)
+    cold = DM.ColdTier("int8")
+    ids_c = np.setdiff1d(np.arange(n), dropped)[:SVC_COLD]
+    orig = store.get(ids_c)
+    cold.demote(store, ids_c)
+    cold.restore(store, ids_c)
+    back = store.get(ids_c)
+    bound = np.abs(orig).max(1, keepdims=True) / 127.0 / 2 + 1e-6
+    cold_ok = bool((np.abs(back - orig) <= bound).all())
+    vac = DM.vacuum(store)
+    del store, tt
+    torch.cuda.empty_cache()
     log(f"[services] data management: snapshot of {n} rows in "
         f"{snap_s:.3f} s; after adding {SVC_STORE_ADD} rows and deleting "
         f"1% in place, search_as_of of {STORE_NQ} queries equal to before "
@@ -4624,38 +4631,37 @@ def phase_services(index, qb, chosen, exact, smi):
              "vacuum failed")
 
     # ---- CLI: the two commands' interpreters start together ----
-    with tracing.trace("services.cli"):
-        env = dict(os.environ, PYTHONPATH=ROOT)
-        devices = subprocess.Popen(
-            [sys.executable, "-m", "neurondb_tpu_torch", "devices"],
-            cwd=ROOT, env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True)
-        proc = subprocess.Popen([sys.executable, "-m", "neurondb_tpu_torch",
-                                 "rest", "--port", "0"], cwd=ROOT, env=env,
-                                stdout=subprocess.PIPE, text=True)
-        import threading
-        watchdog = threading.Timer(120.0, proc.kill)   # a silent server
-        watchdog.start()
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    devices = subprocess.Popen(
+        [sys.executable, "-m", "neurondb_tpu_torch", "devices"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    proc = subprocess.Popen([sys.executable, "-m", "neurondb_tpu_torch",
+                             "rest", "--port", "0"], cwd=ROOT, env=env,
+                            stdout=subprocess.PIPE, text=True)
+    import threading
+    watchdog = threading.Timer(120.0, proc.kill)   # a silent server
+    watchdog.start()
+    try:
+        line = proc.stdout.readline().strip()
+        cli_port = int(line.rsplit(":", 1)[1])
+        import urllib.request
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{cli_port}/health", timeout=30) as r:
+            health = json.loads(r.read())
+    finally:
+        watchdog.cancel()
+        proc.terminate()
         try:
-            line = proc.stdout.readline().strip()
-            cli_port = int(line.rsplit(":", 1)[1])
-            import urllib.request
-            with urllib.request.urlopen(
-                    f"http://127.0.0.1:{cli_port}/health", timeout=30) as r:
-                health = json.loads(r.read())
-        finally:
-            watchdog.cancel()
-            proc.terminate()
-            try:
-                proc.wait(timeout=30)
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                proc.wait(timeout=30)
-            try:
-                dev_out, _ = devices.communicate(timeout=120)
-            except subprocess.TimeoutExpired:
-                devices.kill()
-                dev_out, _ = devices.communicate(timeout=30)
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+        try:
+            dev_out, _ = devices.communicate(timeout=120)
+        except subprocess.TimeoutExpired:
+            devices.kill()
+            dev_out, _ = devices.communicate(timeout=30)
     log(f"[services] CLI: devices -> {dev_out.strip()!r} (rc "
         f"{devices.returncode}); rest -> {line!r}, /health {health}")
     if devices.returncode or torch.cuda.get_device_name(0) not in dev_out \
@@ -4664,16 +4670,15 @@ def phase_services(index, qb, chosen, exact, smi):
 
     # ---- rebalance the main path's index (not used after this) ----
     from neurondb_tpu_torch.index.validate import validate_index
-    with tracing.trace("services.rebalance"):
-        r_before = recall_at_k(index.search(qb[:NQ], k=K, nprobe=chosen)[1],
-                               exact)
-        t0 = time.perf_counter()
-        rep = DM.rebalance_ivf(index, imbalance_threshold=0.0)
-        torch.cuda.synchronize()
-        reb_s = time.perf_counter() - t0
-        r_after = recall_at_k(index.search(qb[:NQ], k=K, nprobe=chosen)[1],
-                              exact)
-        valid = validate_index(index)["valid"]
+    r_before = recall_at_k(index.search(qb[:NQ], k=K, nprobe=chosen)[1],
+                           exact)
+    t0 = time.perf_counter()
+    rep = DM.rebalance_ivf(index, imbalance_threshold=0.0)
+    torch.cuda.synchronize()
+    reb_s = time.perf_counter() - t0
+    r_after = recall_at_k(index.search(qb[:NQ], k=K, nprobe=chosen)[1],
+                          exact)
+    valid = validate_index(index)["valid"]
     log(f"[services] rebalance_ivf (k-means over all {n} rows, seed + 1) "
         f"in {reb_s:.2f} s: imbalance {rep['imbalance_before']:.3f} -> "
         f"{rep['imbalance_after']:.3f}, recall@10 at nprobe {chosen} vs "
@@ -4682,12 +4687,8 @@ def phase_services(index, qb, chosen, exact, smi):
     if not rep["ran"] or not valid:
         fail("rebalance_ivf did not run or left an invalid index")
 
-    summ = tracing.summary()
-    prom = tracing.prometheus_text()
-    log(f"[services] spans: {summ}")
-    if not all(f'span="{row["span"]}"' in prom for row in summ) or \
-            len(summ) < 7:
-        fail("tracing: prometheus_text lacks a span")
+    if tracing.summary() != summ or tracing.counters() != counts:
+        fail("tracing: a span or counter recorded with no profiler on")
     flash = dict(FA.LAUNCHES)
     log(f"[services] phase in {time.perf_counter() - t_phase:.1f} s (budget "
         f"{SERVICES_S} s): grouped launches {G.LAUNCHES} ({rest_launches} "

@@ -16,6 +16,8 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
+from neurondb_tpu_torch.utils import tracing
+
 
 class BaseIndex:
     """Interface: build/add/search/save/load. Subclasses set ``kind``."""
@@ -105,6 +107,7 @@ def _is_wire(a, np_dt, torch_dt) -> bool:
     return _is_np_dtype(a, np_dt)
 
 
+@tracing.annotate_fn("ndb.as_batch")
 def as_batch(queries, device=None) -> Tuple[torch.Tensor, bool]:
     """Batchify to [B, D] f32 on ``device`` -> (queries, was_single).
 

@@ -81,6 +81,7 @@ from neurondb_tpu_torch.config import (get_config, resolve_device,
 from neurondb_tpu_torch.index.base import BaseIndex, as_batch
 from neurondb_tpu_torch.ops import distance as D
 from neurondb_tpu_torch.ops import topk as TK
+from neurondb_tpu_torch.utils import tracing
 
 INF = float(torch.finfo(torch.float32).max)
 INF_NP = float(np.finfo(np.float32).max) * 0.5   # "masked" threshold
@@ -193,9 +194,19 @@ def _beam_search(q, entry, vecs, sqnorms, nbr, rowmap, *, metric: str,
     visited.scatter_add_(1, e_safe >> 5,
                          torch.where(entry_ok, _bits(e_safe), 0))
 
+    # counted while tracing: fresh rows summed on the device, one launch
+    # a step, read once at the end
+    tally = tracing.recording()
+    n_fresh = torch.zeros((B, E * deg), dtype=torch.int32, device=dev) \
+        if tally else None
+    steps = max_steps
     for step in range(max_steps):
-        if step and step % CHECK_EVERY == 0 and bool(expanded.all()):
-            break
+        if step and step % CHECK_EVERY == 0:
+            with tracing.trace("ndb.hnsw.check"):
+                done = bool(expanded.all())
+            if done:
+                steps = step
+                break
         md = torch.where(expanded, INF, beam_d)
         e = md.argmin(1, keepdim=True) if E == 1 else _smallest(md, E)[1]
         active = md.gather(1, e) < INF
@@ -216,6 +227,8 @@ def _beam_search(q, entry, vecs, sqnorms, nbr, rowmap, *, metric: str,
         bit = _bits(nb_safe)
         fresh = ok & ((visited.gather(1, word) & bit) == 0)
         visited.scatter_add_(1, word, torch.where(fresh, bit, 0))
+        if tally:
+            n_fresh.add_(fresh)
 
         vr = vrow(nb_safe)
         d = _pair_dist(q, q_sq, vecs[vr], sqnorms[vr], metric)
@@ -224,6 +237,10 @@ def _beam_search(q, entry, vecs, sqnorms, nbr, rowmap, *, metric: str,
         beam_i = torch.cat([beam_i, nb_safe], dim=1).gather(1, pos)
         expanded = torch.cat([expanded, ~fresh], dim=1).gather(1, pos)
         beam_i = torch.where(beam_d < INF, beam_i, -1)
+    if tally:
+        tracing.count("hnsw.fresh", n_fresh.sum())
+        tracing.count("hnsw.steps", steps)
+        tracing.count("hnsw.gathered", steps * B * E * deg)
     return beam_d, beam_i
 
 
@@ -1298,6 +1315,7 @@ class HNSWIndex(BaseIndex):
         return out
 
     # ---- search ----
+    @tracing.annotate_fn("ndb.hnsw.search")
     def search(self, queries, k: int = 10, *, ef: Optional[int] = None,
                max_steps: Optional[int] = None, batch: Optional[int] = None,
                expand: int = 4, router_topr: int = 4
@@ -1320,32 +1338,35 @@ class HNSWIndex(BaseIndex):
         outs_d, outs_i = [], []
         for s in range(0, q.shape[0], batch):
             qb = q[s:s + batch]
-            if self._router is not None:
-                bd, bi = _query_search_routed(
-                    qb, self._router["centroids"], self._router["reps"],
-                    self._vecs, self._sqnorms, self._nbr0,
-                    metric=self._imetric, ef=ef, max_steps=steps,
-                    expand=expand, topr=min(router_topr, ef))
-            else:
-                bd, bi = _query_search(
-                    qb, self.entry, self._vecs, self._sqnorms, self._nbr0,
-                    uppers, graph_top=self.entry_level, ef=ef,
-                    max_steps=steps, metric=self._imetric, expand=expand)
+            with tracing.trace("ndb.hnsw.beam"):
+                if self._router is not None:
+                    bd, bi = _query_search_routed(
+                        qb, self._router["centroids"], self._router["reps"],
+                        self._vecs, self._sqnorms, self._nbr0,
+                        metric=self._imetric, ef=ef, max_steps=steps,
+                        expand=expand, topr=min(router_topr, ef))
+                else:
+                    bd, bi = _query_search(
+                        qb, self.entry, self._vecs, self._sqnorms,
+                        self._nbr0, uppers, graph_top=self.entry_level,
+                        ef=ef, max_steps=steps, metric=self._imetric,
+                        expand=expand)
             outs_d.append(bd[:, :keep])
             outs_i.append(bi[:, :keep])
-        dists = torch.cat(outs_d).cpu().numpy()
-        rows = torch.cat(outs_i).cpu().numpy()
-        if tombstones:
-            # deleted nodes were traversable but are never returned: mask
-            # and re-rank within the ef beam
-            dead = (rows < 0) | ~self._alive_np[np.maximum(rows, 0)]
-            dists = np.where(dead, np.inf, dists)
-            rows = np.where(dead, -1, rows)
-            order = np.argsort(dists, axis=1, kind="stable")[:, :k]
-            dists = np.take_along_axis(dists, order, axis=1)
-            rows = np.take_along_axis(rows, order, axis=1)
-        dists = self._postprocess_dist(dists)
-        ids = np.where(rows >= 0, self._ids_np[np.maximum(rows, 0)], -1)
+        with tracing.trace("ndb.hnsw.collect"):
+            dists = torch.cat(outs_d).cpu().numpy()
+            rows = torch.cat(outs_i).cpu().numpy()
+            if tombstones:
+                # deleted nodes were traversable but are never returned:
+                # mask and re-rank within the ef beam
+                dead = (rows < 0) | ~self._alive_np[np.maximum(rows, 0)]
+                dists = np.where(dead, np.inf, dists)
+                rows = np.where(dead, -1, rows)
+                order = np.argsort(dists, axis=1, kind="stable")[:, :k]
+                dists = np.take_along_axis(dists, order, axis=1)
+                rows = np.take_along_axis(rows, order, axis=1)
+            dists = self._postprocess_dist(dists)
+            ids = np.where(rows >= 0, self._ids_np[np.maximum(rows, 0)], -1)
         return (dists[0], ids[0]) if single else (dists, ids)
 
     def _postprocess_dist(self, d: np.ndarray) -> np.ndarray:

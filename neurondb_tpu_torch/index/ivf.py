@@ -54,6 +54,7 @@ from neurondb_tpu_torch.ops import distance as D
 from neurondb_tpu_torch.ops import topk as TK
 from neurondb_tpu_torch.ops.kernels import ivf_scan as P
 from neurondb_tpu_torch.ops.kernels import ivf_scan_grouped as G
+from neurondb_tpu_torch.utils import tracing
 
 PAD_SEG = 1024    # store tail padding, as in the JAX package's layout
 SEGMENT = P.SEG   # the probe route's rows per segment (``max_segs`` unit)
@@ -138,6 +139,8 @@ def _ivf_search_grouped(q, centroids, vecs, row_ids, offsets, counts,
     B = q.shape[0]
     qt = qt or G.auto_qt(B, npad, nlists)
     t_max = G.tiles_for(B, npad, nlists, qt)
+    tracing.count("ivf.tuples", B * nprobe)
+    tracing.count("ivf.tile_slots", t_max * qt)
     kp = max(8, min(k, G.SEG))
     tile_off, tile_cnt, pos = G.group_probes(probes, offsets, counts, qt=qt,
                                              t_max=t_max)
@@ -359,6 +362,7 @@ class IVFFlatIndex(BaseIndex):
         self._build_lists(vs)
 
     # ---- search ----
+    @tracing.annotate_fn("ndb.ivf.search")
     def search(self, queries, k: int = 10, *, nprobe: Optional[int] = None,
                out: str = "numpy", recall_target: float = 1.0,
                coarse_rt: Optional[float] = None,

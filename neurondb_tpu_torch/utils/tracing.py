@@ -1,29 +1,42 @@
-"""Tracing / profiling hooks — torch.profiler integration + span timing.
+"""Tracing / profiling hooks — torch.profiler integration, spans and
+counters.
 
 Counterpart of ``neurondb_tpu/utils/tracing.py`` (which wraps
-``jax.profiler``). This module provides:
+``jax.profiler``). Tracing is on exactly while a ``torch.profiler``
+records (``profile()`` below, the benchmark's traced stretch, or any
+other ``torch.profiler.profile``): torch's own flag decides, and there is
+no other switch. This module provides:
 
-- ``trace(name)``: context manager that is at once a
-  ``torch.profiler.record_function`` range (a named span in any
-  ``torch.profiler`` trace, CPU or CUDA), an NVTX range when CUDA is
-  initialised (visible to Nsight), and a wall-clock span recorded in the
-  process-local registry;
+- ``trace(name)``: a span. Off, one flag check and a shared no-op
+  context. On, a ``torch.profiler.record_function`` range (in the
+  profiler's trace, on the same clock as the card's kernels and copies)
+  whose wall time goes into the process-local registry: count, total,
+  max, and self time (the span's time less the time its child spans on
+  the same thread cover);
+- ``count(name, n)``: adds ``n`` (a Python int, or a 0-d tensor added on
+  its device to the counter's running sum there and read only when
+  ``counters()`` is, so counting never waits for the device) to a
+  counter; nothing when off;
 - ``start_profile(logdir)`` / ``stop_profile()`` / ``profile(logdir)``:
   a whole-program ``torch.profiler.profile`` capture with the CPU
   activity, and the CUDA activity when a card is present; on stop the
   Chrome trace is written to ``<logdir>/TRACE_FILE`` (open it in
   chrome://tracing or Perfetto);
 - ``annotate_fn(name)``: decorator variant for entry points;
-- ``spans()`` / ``summary()`` / ``reset()`` / ``prometheus_text()``:
-  per-span counts and latency stats that feed the Prometheus exporter
-  beside the engine metrics; ``prometheus_text`` gives the JAX module's
-  text for the same spans.
+- ``spans()`` / ``counters()`` / ``summary()`` / ``reset()``: the
+  registry; ``summary()``'s rows are the JAX module's.
 
-Divergences: ``device_memory_profile`` returns
+A span or count records while a profiler records, and also inside a
+span that records (so a request that began while the profiler recorded
+is recorded whole, though the profiler stops before it ends).
+
+Divergences: spans record only under a profiler, where the JAX module
+records every span; ``device_memory_profile`` returns
 ``torch.cuda.memory._snapshot()`` pickled (allocator segments and
 blocks), where the JAX module returns ``jax.profiler``'s pprof bytes; it
 needs a card. ``stop_profile`` returns ``logdir`` as the JAX module does;
-the trace file's path is ``os.path.join(logdir, TRACE_FILE)``.
+the trace file's path is ``os.path.join(logdir, TRACE_FILE)``. The JAX
+module's ``prometheus_text`` has no port: nothing exports spans.
 """
 
 from __future__ import annotations
@@ -37,39 +50,95 @@ import time
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 TRACE_FILE = "trace.json"
 
 _lock = threading.Lock()
 _spans: Dict[str, Dict[str, float]] = {}
+_counts: Dict[str, list] = {}      # name -> [host int, {device: 0-d sum}]
+_local = threading.local()         # .stack: this thread's open spans
+_NULL = contextlib.nullcontext()
 _active_logdir: Optional[str] = None
 _active_prof: Optional[torch.profiler.profile] = None
 
+if hasattr(_autograd_profiler, "_is_profiler_enabled"):
+    def _profiling() -> bool:
+        return _autograd_profiler._is_profiler_enabled
+else:
+    _profiling = torch._C._autograd._profiler_enabled
 
-def _record(name: str, seconds: float) -> None:
+
+def recording() -> bool:
+    """Whether a span or count begun now records: while a profiler
+    records, and inside a span of this thread that records."""
+    return bool(_profiling() or getattr(_local, "stack", None))
+
+
+def _record(name: str, seconds: float, self_s: float) -> None:
     with _lock:
         s = _spans.setdefault(name, {"count": 0, "total_s": 0.0,
-                                     "max_s": 0.0})
+                                     "max_s": 0.0, "self_s": 0.0})
         s["count"] += 1
         s["total_s"] += seconds
         s["max_s"] = max(s["max_s"], seconds)
+        s["self_s"] += self_s
 
 
-@contextlib.contextmanager
+def _add(name: str, n) -> None:
+    with _lock:
+        c = _counts.setdefault(name, [0, {}])
+        if isinstance(n, torch.Tensor):
+            held = c[1].get(n.device)
+            c[1][n.device] = n if held is None else held + n
+        else:
+            c[0] += int(n)
+
+
+class _Span:
+    """A recording span: a ``record_function`` range, its wall time and
+    self time added to the registry on exit."""
+
+    __slots__ = ("name", "_range", "_t0", "_child")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        stack = getattr(_local, "stack", None)
+        if stack is None:
+            stack = _local.stack = []
+        self._range = torch.profiler.record_function(self.name)
+        self._range.__enter__()
+        self._child = 0.0
+        stack.append(self)
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter() - self._t0
+        stack = _local.stack
+        stack.pop()
+        if stack:
+            stack[-1]._child += dt
+        self._range.__exit__(*exc)
+        _record(self.name, dt, dt - self._child)
+        return False
+
+
 def trace(name: str):
-    """Wall-clock span + ``record_function`` range (+ NVTX range once CUDA
-    is initialised)."""
-    nvtx = torch.cuda.is_available() and torch.cuda.is_initialized()
-    t0 = time.perf_counter()
-    if nvtx:
-        torch.cuda.nvtx.range_push(name)
-    try:
-        with torch.profiler.record_function(name):
-            yield
-    finally:
-        if nvtx:
-            torch.cuda.nvtx.range_pop()
-        _record(name, time.perf_counter() - t0)
+    """A span named ``name`` (a context manager): a shared no-op unless
+    ``recording()``."""
+    return _Span(name) if recording() else _NULL
+
+
+def count(name: str, n) -> None:
+    """Add ``n`` (a Python int or a 0-d tensor, on any device) to the
+    counter ``name`` if ``recording()``. A caller that computes a tensor
+    to count checks ``recording()`` first, so that no device work runs
+    while tracing is off."""
+    if recording():
+        _add(name, n)
 
 
 def annotate_fn(name: Optional[str] = None) -> Callable:
@@ -144,8 +213,18 @@ def device_memory_profile(path: Optional[str] = None) -> bytes:
 
 
 def spans() -> Dict[str, Dict[str, float]]:
+    """Each span's count, ``total_s``, ``max_s`` and ``self_s``."""
     with _lock:
         return {k: dict(v) for k, v in _spans.items()}
+
+
+def counters() -> Dict[str, int]:
+    """Each counter's total (reading a tensor counted on a device waits
+    for it)."""
+    with _lock:
+        held = {k: (c[0], list(c[1].values())) for k, c in _counts.items()}
+    return {k: total + sum(int(t) for t in tensors)
+            for k, (total, tensors) in held.items()}
 
 
 def summary() -> List[Dict[str, Any]]:
@@ -160,17 +239,7 @@ def summary() -> List[Dict[str, Any]]:
 
 
 def reset() -> None:
+    """Clear the spans and the counters."""
     with _lock:
         _spans.clear()
-
-
-def prometheus_text() -> str:
-    """Span stats in Prometheus exposition format (joins the metrics
-    exporter's output)."""
-    lines = []
-    for row in summary():
-        lines.append(f"ndb_span_count{{span=\"{row['span']}\"}} "
-                     f"{row['count']}")
-        lines.append(f"ndb_span_total_seconds{{span=\"{row['span']}\"}} "
-                     f"{row['total_s']}")
-    return "\n".join(lines) + ("\n" if lines else "")
+        _counts.clear()

@@ -448,20 +448,20 @@ def test_prometheus_exporter_serves_metrics():
     assert TMET.PrometheusExporter().port == TC.get_config().prometheus_port
 
 
-def test_prometheus_text_equal_jax():
-    """The same spans give the same span text and summary."""
+def test_span_summary_equal_jax():
+    """The same spans give the same summary rows."""
     JTR.reset()
     TTR.reset()
     for name, secs in (("search.coarse", 0.0021), ("search.scan", 0.0135),
                        ("search.coarse", 0.004), ("rest-handler", 1.25)):
         JTR._record(name, secs)
-        TTR._record(name, secs)
+        TTR._record(name, secs, secs)
     assert TTR.summary() == JTR.summary()
-    assert TTR.prometheus_text() == JTR.prometheus_text()
-    assert 'ndb_span_count{span="search.coarse"} 2' in TTR.prometheus_text()
+    assert {r["span"]: r["count"] for r in TTR.summary()}["search.coarse"] \
+        == 2
     TTR.reset()
     JTR.reset()
-    assert TTR.prometheus_text() == JTR.prometheus_text() == ""
+    assert TTR.summary() == JTR.summary() == []
 
 
 def test_trace_span_in_a_cpu_profiler_trace(tmp_path):
