@@ -334,7 +334,7 @@ PQ_BATCH, PQ_NQ = 8192, 1024
 PQ_SWEEP = ((8, 8), (8, 16), (16, 16), (16, 24))
 SAVE_ROWS = 100_000       # the IVF-PQ save/load round trip's index
 KERNELS = ("ivf_scan_grouped", "ivfpq_scan",
-           "flash_attention", "ivf_probe_scan", "ml_recurrence")
+           "flash_attention", "ivf_probe_scan", "ml_recurrence", "hnsw_beam")
 # flash kernel vs plain: f32 sums in another order; with bf16 products a
 # p within f32 noise of a rounding boundary may round one bf16 step
 # (2^-8) apart, moving an output by up to 2^-8 * (p / l) * |v|
@@ -375,6 +375,9 @@ SOURCES = {
     "ml_recurrence": ("neurondb_tpu_torch/csrc/ml_recurrence.cu", {
         "q_learning": "neurondb_tpu/ml/rl.py:33",
         "holt_winters": "neurondb_tpu/ml/timeseries.py:62"}),
+    # no TPU kernel: the beam's lax.while_loop
+    "hnsw_beam": ("neurondb_tpu_torch/csrc/hnsw_beam.cu",
+                  "neurondb_tpu/index/hnsw.py:195"),
 }
 # the probe kernel's ragged layout: list lengths around its 512-row segment
 PROBE_LENS = (0, 3, 31, 511, 512, 513, 1024, 1025, 2500)
@@ -397,6 +400,16 @@ HNSW_DIST_RTOL = 1e-3      # returned distance vs its row's own distance
 # ... plus this share of |q|^2 + |x|^2, where the f32 expansion rounds:
 # 3.4x the largest reading, 2.9e-7 (NVIDIA H100 80GB HBM3, 700 W)
 HNSW_TERMS_TOL = 1e-6
+# the beam kernel vs its plain version at the benchmark cell's shape: one
+# sub-batch of 4,096 queries at ef 128; recall@10 within HNSW_BEAM_RECALL,
+# and the worst distance reading (|error| / terms) above the plain
+# version's by at most one f32 rounding of the terms
+HNSW_BEAM_BATCH, HNSW_BEAM_EF = 4096, 128
+HNSW_BEAM_RECALL = 0.002
+HNSW_BEAM_READING = 2.0 ** -24
+# ... and the kernel's ids equal to the plain version's slot for slot on
+# this share of the slots (1.0 measured on NVIDIA H100 80GB HBM3, 700 W)
+HNSW_BEAM_AGREE = 0.99
 # the grouped scan vs plain where the queries are corpus rows (the HNSW
 # bootstrap, the hybrid ANN), absolute: 4.1x the largest reading at the
 # bootstrap's self-hits (d ~ 0 beside terms ~ 2,000), 7.3e-4 (the same
@@ -577,11 +590,12 @@ def fail(msg: str) -> None:
 def _zero_launches():
     """Every kernel wrapper's launch count to 0 (flash: per mode)."""
     from neurondb_tpu_torch.ops.kernels import flash_attention as FA
+    from neurondb_tpu_torch.ops.kernels import hnsw_beam as HB
     from neurondb_tpu_torch.ops.kernels import ivf_scan as PS
     from neurondb_tpu_torch.ops.kernels import ivf_scan_grouped as G
     from neurondb_tpu_torch.ops.kernels import ivfpq_scan as PQS
     from neurondb_tpu_torch.ops.kernels import ml_recurrence as MREC
-    G.LAUNCHES = PQS.LAUNCHES = PS.LAUNCHES = 0
+    G.LAUNCHES = PQS.LAUNCHES = PS.LAUNCHES = HB.LAUNCHES = 0
     FA.LAUNCHES = dict.fromkeys(FA.LAUNCHES, 0)
     MREC.LAUNCHES = dict.fromkeys(MREC.LAUNCHES, 0)
 
@@ -619,7 +633,7 @@ def phase_build():
         for line in _build.build_log(name).splitlines():
             kernel = re.search(
                 r"((?:grouped|pq|probe)_scan(?:_mma)?_kernel|"
-                r"flash_(?:bf16|f32)_kernel)"
+                r"flash_(?:bf16|f32)_kernel|hnsw_beam_kernel)"
                 r"I(.*?)EEv", line)
             if kernel and "Function properties" in line:
                 # the kernel's template arguments: store type, mode
@@ -1718,6 +1732,85 @@ def _hnsw_row_err(q, d, ids, index):
     return np.abs(d.astype(np.float64) ** 2 - want), want, terms
 
 
+def _hnsw_beam_check(index, qb, exact, smi):
+    """The beam kernel (``csrc/hnsw_beam.cu``) against its plain version
+    at the benchmark cell's shape: HNSW_BEAM_BATCH queries, ef
+    HNSW_BEAM_EF, one sub-batch through ``search`` with the kernel and
+    with the plain version (``kernel_takes`` forced False); recall@10 of
+    each against the exact neighbours of the first NQ rows, each one's
+    worst distance reading, and the slots where their ids agree; then the
+    kernel (the wrapper, its bitmap's memset included) timed beside the
+    plain version and its byte bound: each fresh row read once with its
+    f32 norm. Returns the kernels line's numbers: the times, the bound,
+    the launches of the kernel's search (one a sub-batch) and the store's
+    type."""
+    import torch
+    from neurondb_tpu_torch.index import hnsw as H
+    from neurondb_tpu_torch.ml.metrics import recall_at_k
+    from neurondb_tpu_torch.ops.kernels import hnsw_beam as HB
+    b, ef = HNSW_BEAM_BATCH, HNSW_BEAM_EF
+    seen = {}
+    beam, takes = HB.beam_search, HB.kernel_takes
+
+    def catching(*a, **kw):
+        seen.setdefault("args", (a, kw))
+        return beam(*a, **kw)
+
+    launches = HB.LAUNCHES
+    HB.beam_search = catching
+    try:
+        d_k, ids_k = index.search(qb[:b], k=K, ef=ef, batch=b)
+    finally:
+        HB.beam_search = beam
+    main_launches = HB.LAUNCHES - launches
+    if main_launches != 1 or "args" not in seen:
+        fail("the HNSW search did not run the beam kernel once a sub-batch")
+    HB.kernel_takes = lambda *a, **k: False
+    try:
+        d_p, ids_p = index.search(qb[:b], k=K, ef=ef, batch=b)
+    finally:
+        HB.kernel_takes = takes
+    if HB.LAUNCHES != launches + 1:
+        fail("the plain HNSW search launched the beam kernel")
+    worst_k = _hnsw_check_rows("hnsw beam kernel", qb[:NQ], d_k[:NQ],
+                               ids_k[:NQ], index)
+    worst_p = _hnsw_check_rows("hnsw beam plain", qb[:NQ], d_p[:NQ],
+                               ids_p[:NQ], index)
+    r_k, r_p = recall_at_k(ids_k[:NQ], exact), recall_at_k(ids_p[:NQ], exact)
+    agree = float((ids_k == ids_p).mean())
+    a, kw = seen["args"]
+    q, entry, vecs, sqn, nbr, _ = a
+    _, _, fresh, steps = beam(*a, **kw)
+    n_fresh = int(fresh.sum())
+    nbytes = n_fresh * (vecs.shape[1] * vecs.element_size() + 4)
+    bound_ms, bound_by = _bound(nbytes, 2.0 * n_fresh * vecs.shape[1],
+                                "f32")
+    ms = _cuda_ms(lambda: beam(*a, **kw), 10)
+    plain_ms = _cuda_ms(lambda: H._beam_search_plain(
+        q, entry, vecs, sqn, nbr, None, identity_map=True, **kw), 2)
+    log(f"[hnsw] beam kernel vs plain at {b} x ef {ef} (E {kw['expand']}, "
+        f"{entry.shape[1]} entries, max_steps {kw['max_steps']}): recall@10 "
+        f"vs exact {r_k:.4f} / {r_p:.4f}, worst d^2 reading {worst_k:.3e} / "
+        f"{worst_p:.3e} of the terms, ids equal on {agree:.4f}; kernel "
+        f"{ms:.3f} ms (wrapper: the bitmap's memset and one launch), plain "
+        f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+        f"{n_fresh} fresh rows, {nbytes / 1e9:.3f} GB), steps max "
+        f"{int(steps.max())} mean {float(steps.float().mean()):.1f}; "
+        f"{smi}")
+    if abs(r_k - r_p) > HNSW_BEAM_RECALL:
+        fail(f"the beam kernel's recall@10 {r_k} is not the plain "
+             f"version's {r_p} within {HNSW_BEAM_RECALL}")
+    if worst_k > worst_p + HNSW_BEAM_READING:
+        fail(f"the beam kernel's worst distance reading {worst_k} exceeds "
+             f"the plain version's {worst_p}")
+    if agree < HNSW_BEAM_AGREE:
+        fail(f"the beam kernel's ids equal the plain version's on {agree} "
+             f"of the slots, under {HNSW_BEAM_AGREE}")
+    mode = {torch.bfloat16: "bf16", torch.float32: "f32"}[vecs.dtype]
+    return {"mode": mode, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "launches": main_launches}
+
+
 def _hnsw_check_rows(label, q, d, ids, index):
     """Rows without duplicate ids, each returned d^2 its row's own within
     HNSW_DIST_RTOL of it plus HNSW_TERMS_TOL of |q|^2 + |x|^2 (the search
@@ -1809,7 +1902,8 @@ def phase_hnsw(x, qb, gt, exact, smi):
     HNSWIndex(x, m=16, seed=0, build_mode="bulk") on the card, its
     grouped-kernel bootstrap held to the plain version at the bootstrap's
     shape, the ef sweep, a profile, mutation and a save/load round trip.
-    Returns the grouped kernel's launches during the build."""
+    Returns the grouped kernel's launches during the build, its mode, and
+    the beam kernel's times at the benchmark cell's shape."""
     import torch
     import neurondb_tpu_torch as nt
     from neurondb_tpu_torch.ml.metrics import recall_at_k
@@ -1913,6 +2007,7 @@ def phase_hnsw(x, qb, gt, exact, smi):
     sub = int(max(64, min(4096, (1 << 32) // index._ncap)))  # one sub-batch
     _profile(f"hnsw profile ef {chosen} batch {sub}",
              lambda: index.search(qb[:sub], k=K, ef=chosen))
+    beam = _hnsw_beam_check(index, qb, exact, smi)
 
     _hnsw_validate_and_graph(index, smi)
 
@@ -1974,7 +2069,7 @@ def phase_hnsw(x, qb, gt, exact, smi):
     torch.cuda.empty_cache()
     mode = ("exact" if not kw["pos_bits"] else
             "blockmin" if kw["block_min"] else "packed")
-    return launches, mode
+    return launches, mode, beam
 
 
 def phase_save_load(index, qb, nprobe):
@@ -6113,7 +6208,7 @@ def main(argv):
     pq_launches = {"exact": None, "packed": None}
     flash_launches = {"bf16": None, "f32": None}
     probe_launches = {"exact": None}
-    rec_stats = None
+    rec_stats = beam_stats = None
     if not kernels_only:
         from neurondb_tpu_torch import get_config
         index, qb, chosen, flat_launches, x, gt, exact = phase_main()
@@ -6129,7 +6224,8 @@ def main(argv):
         del index
         torch.cuda.empty_cache()
         phase_store(x, qb, smi)
-        hnsw_launches, hnsw_mode = phase_hnsw(x, qb, gt, exact, smi)
+        hnsw_launches, hnsw_mode, beam_stats = phase_hnsw(x, qb, gt, exact,
+                                                          smi)
         flat_launches[hnsw_mode] += hnsw_launches
         pq_launches = phase_ivfpq(x)
         phase_quantized(x, qb, exact, smi)
@@ -6171,6 +6267,11 @@ def main(argv):
                         "route": "cuda", "source": source,
                         "replaces": replaces[mode],
                         "launches": st.pop("launches", None), **st})
+    source, replaces = SOURCES["hnsw_beam"]
+    st = dict(beam_stats) if beam_stats else {"launches": None}
+    kernels.append({"name": "hnsw_beam", "mode": st.pop("mode", None),
+                    "route": "cuda", "source": source, "replaces": replaces,
+                    **st})
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,10 +12,15 @@ rows with its row <-> vector maps. A query batch runs in lockstep:
 - ``_query_search`` (incremental indexes): ``_greedy_descent`` through the
   upper levels, then the level-0 beam;
 - ``_beam_search``: per step, pop the E best unexpanded beam entries,
-  gather their neighbours, dedup them (stable id sort), test and set a
-  ``[B, ceil(Ncap / 32)]`` visited bitmap (int32 words, scatter-add of
-  distinct fresh bits, which is OR), score the fresh ones and merge them
-  into the beam by a stable sort, so ties keep ``lax.top_k``'s order.
+  gather their neighbours, test and set each in a ``[B, ceil(Nc / 32)]``
+  visited bitmap over the level's Nc rows (n at level 0 in a search),
+  score the fresh ones and merge them into the beam, ties in
+  ``lax.top_k``'s order. On the card one launch of
+  ``csrc/hnsw_beam.cu`` (``ops/kernels/hnsw_beam.py``) runs the whole
+  walk, one thread block a query; ``_beam_search_plain`` runs it as torch
+  ops (dedup by a stable id sort, the bitmap set by a scatter-add of
+  distinct fresh bits, which is OR, the merge by a stable sort) for CPU
+  tensors and the shapes past the kernel's limits.
 
 The bulk build (``build_bulk``) bootstraps a k-NN graph (``chunked_knn``
 up to ``EXACT_KNN_MAX_ROWS`` rows, else self-queries of an
@@ -27,10 +32,12 @@ exact in-level k-NN. ``add`` inserts in waves (``_wave_search``,
 ``_link_level0_device``), ``delete`` tombstones and ``compact`` removes
 with back-link repair.
 
-The JAX primitives are plain functions on tensors. A ``lax.while_loop``
-becomes a Python loop that checks convergence on the host every 8 steps
-(a step on a converged batch changes nothing, so the result is the
-JAX loop's); a ``lax.scan`` over slabs a loop over slabs. Rows are
+The JAX primitives are plain functions on tensors. The beam's
+``lax.while_loop`` becomes the kernel, whose queries stop one by one, and
+in the plain version a Python loop that checks convergence on the host
+every 8 steps (a step on a converged query changes nothing, so either
+gives the JAX loop's result); the greedy descent's a Python loop; a
+``lax.scan`` over slabs a loop over slabs. Rows are
 independent, so a slab's size bounds memory and launches and changes no
 result: the slabs here are 4x the JAX package's, to cut the launches a
 1M-row build makes (its peak stays a few GB).
@@ -81,6 +88,7 @@ from neurondb_tpu_torch.config import (get_config, resolve_device,
 from neurondb_tpu_torch.index.base import BaseIndex, as_batch
 from neurondb_tpu_torch.ops import distance as D
 from neurondb_tpu_torch.ops import topk as TK
+from neurondb_tpu_torch.ops.kernels import hnsw_beam as HB
 from neurondb_tpu_torch.utils import tracing
 
 INF = float(torch.finfo(torch.float32).max)
@@ -148,14 +156,56 @@ def _greedy_descent(q, cur, vecs, sqnorms, nbr, rowmap, *, metric: str,
 def _beam_search(q, entry, vecs, sqnorms, nbr, rowmap, *, metric: str,
                  ef: int, max_steps: int, identity_map: bool,
                  expand: int = 1):
-    """ef-bounded best-first expansion at one level, whole batch in lockstep.
+    """ef-bounded best-first expansion at one level.
 
     q [B, D]; entry [B] or [B, R] local rows (multi-entry: the router's
     seeds; duplicates within a row count once); nbr [Nc, deg] local
     adjacency (-1 pad); rowmap [Nc] local -> vector row (ignored when
     identity_map). ``expand`` pops the E best unexpanded candidates per
-    step. The visited set is a [B, ceil(Nc / 32)] bitmap of int32 words.
-    Returns (dists [B, ef], rows [B, ef]) ascending, (INF, -1) padded."""
+    step. Returns (dists [B, ef], rows [B, ef]) ascending, (INF, -1)
+    padded. A shape the kernel takes (``hnsw_beam.kernel_takes``: CUDA
+    tensors, ef <= 1024, E x deg <= 256, ...) runs ``csrc/hnsw_beam.cu``,
+    one launch, each query walking to its own convergence; any other runs
+    ``_beam_search_plain``. Both give the same answers up to the order of
+    the f32 sums. While tracing, ``hnsw.rows`` counts the rows entering
+    and ``hnsw.kernel_rows`` those the kernel served."""
+    B = q.shape[0]
+    E = max(1, expand)
+    deg = nbr.shape[1]
+    tally = tracing.recording()
+    served = HB.kernel_takes(
+        q.device.type, rows=B, dim=q.shape[1], ef=ef, expand=E, deg=deg,
+        entries=1 if entry.ndim == 1 else entry.shape[1],
+        max_steps=max_steps, store_dtype=vecs.dtype)
+    if tally:
+        tracing.count("hnsw.rows", B)
+        tracing.count("hnsw.kernel_rows", B if served else 0)
+    if not served:
+        return _beam_search_plain(q, entry, vecs, sqnorms, nbr, rowmap,
+                                  metric=metric, ef=ef, max_steps=max_steps,
+                                  identity_map=identity_map, expand=E)
+    d, rows, fresh, steps = HB.beam_search(
+        q, entry, vecs, sqnorms, nbr, None if identity_map else rowmap,
+        metric=metric, ef=ef, max_steps=max_steps, expand=E)
+    if tally:
+        # summed on the card, read when the counters are: the slowest
+        # row's steps, the lockstep loop's count
+        top = steps.max().long()
+        tracing.count("hnsw.fresh", fresh.sum())
+        tracing.count("hnsw.steps", top)
+        tracing.count("hnsw.gathered", top * (B * E * deg))
+    return d, rows
+
+
+def _beam_search_plain(q, entry, vecs, sqnorms, nbr, rowmap, *, metric: str,
+                       ef: int, max_steps: int, identity_map: bool,
+                       expand: int = 1):
+    """``_beam_search`` as torch ops, the whole batch in lockstep (the
+    plain version of the kernel): per step, pop the E best unexpanded
+    beam entries, gather their neighbours, dedup them (stable id sort),
+    test and set a [B, ceil(Nc / 32)] visited bitmap of int32 words, score
+    the fresh ones and merge them into the beam by a stable sort; the host
+    checks convergence every ``CHECK_EVERY`` steps."""
     B = q.shape[0]
     Nc, deg = nbr.shape
     E = max(1, expand)
@@ -1335,6 +1385,8 @@ class HNSWIndex(BaseIndex):
         tombstones = not self._alive_np.all()
         keep = ef if tombstones else k
         uppers = tuple((u["nbr"], u["nodes"], u["pos"]) for u in self._upper)
+        # rows past n hold no node and no link: the visited sets span n rows
+        nbr0 = self._nbr0[:self.n]
         outs_d, outs_i = [], []
         for s in range(0, q.shape[0], batch):
             qb = q[s:s + batch]
@@ -1342,13 +1394,13 @@ class HNSWIndex(BaseIndex):
                 if self._router is not None:
                     bd, bi = _query_search_routed(
                         qb, self._router["centroids"], self._router["reps"],
-                        self._vecs, self._sqnorms, self._nbr0,
+                        self._vecs, self._sqnorms, nbr0,
                         metric=self._imetric, ef=ef, max_steps=steps,
                         expand=expand, topr=min(router_topr, ef))
                 else:
                     bd, bi = _query_search(
                         qb, self.entry, self._vecs, self._sqnorms,
-                        self._nbr0, uppers, graph_top=self.entry_level,
+                        nbr0, uppers, graph_top=self.entry_level,
                         ef=ef, max_steps=steps, metric=self._imetric,
                         expand=expand)
             outs_d.append(bd[:, :keep])
